@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's EP-SpMV serving path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
 
     python3 chip_smoke.py
 
 Builds the kernels from ``src/repro_torch/kernels/csrc`` (nvcc, one process
-per source), then drives the port's main path through the entry points a
-user calls, with the kernels' launch counts set to 0 just before and read
-just after:
+per source, all at once), then drives the port's two main paths through the
+entry points a user calls, each with the kernels' launch counts set to 0
+just before it and read just after.
+
+The EP-SpMV path, in three phases:
 
   dedicated      GraphServer(PartitionService(), k=1024, pad=128) on a
                  262,144 x 262,144 matrix with 16 nnz per row (4.2M nnz, the
@@ -24,18 +26,37 @@ a warm y, a y served during the repartition and the post-swap y, is held
 against a float64 COO product on the host (rtol = atol = 1e-5); a stacked
 batch must equal each batch of one bit for bit, and in
 software mode the bucketed lane must equal the dedicated lane bit for bit.
-Then each kernel is run at the main path's shapes, held against its plain
-PyTorch twin on the same card tensors, and timed with CUDA events over
+Then each SpMV kernel is run at the main path's shapes, held against its
+plain PyTorch twin on the same card tensors, and timed with CUDA events over
 back-to-back launches (and alone, from the profiler's trace) beside its
 bound (the bytes this run's data needs: valid tasks, the x entries they
 read, the y runs and the output, over the card's memory rate), its twin
-and one PyTorch library call that computes the same product.  Last, one
+and one PyTorch library call that computes the same product; and one
 warm request in each lane is profiled: its wall time, the host's heaviest
 functions (cProfile) and the device's busy time by kernel and copy
-(torch.profiler), whose ratio to the wall time is the device's idle
-share.  Any failure raises, so the exit code is not 0.  Without a CUDA
-device, or without the repository beside it, the script prints no result and
-exits 1.  The last line is the device record.
+(torch.profiler), whose ratio to the wall time is the device's idle share.
+
+The LM serving path (``lm_serving``): qwen3-moe-30b-a3b at its published
+widths (d_model 2048, 32/4 heads of 128, 128 experts top-8 of d_ff 768,
+vocab 151,936), cut to 8 of its 48 layers, f32 master weights and bf16
+compute copies drawn on the card from a seed, serves a batch of 4 prompts
+of 2,048 tokens and greedily decodes 32 tokens through ``serve_config`` (what
+``run_serving`` runs).  Flash attention must have run once per layer in
+prefill and the expert FFN once per layer per step.  Then each kernel is
+held against its twin at the shapes that run gave it (bf16: 5e-2, and
+1e-2 |want| + 5e-2 rms(row) elementwise) and in
+float32 at a smaller shape (2e-5), and timed beside its bound (the larger
+of its bytes over the memory rate and its products over the bf16 tensor-core
+rate), its twin and one library call (SDPA; three ``bmm`` and a SiLU); a warm
+prefill and a warm decode step are profiled (wall, device busy by kernel,
+idle share); and the model is checked end to end in float32: reduced
+qwen3-moe and granite on the card against the CPU (1e-4), and prefill +
+decode against teacher forcing at full width, 2 layers (2e-4).
+
+Any failure raises, so the exit code is not 0.  Without a CUDA device, or
+without the repository beside it, the script prints no result and exits 1.
+The line before the last lists every kernel's numbers; the last line is the
+device record.
 """
 from __future__ import annotations
 
@@ -48,15 +69,39 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = 1e-5
+# The reference's kernel tolerances (tests/test_kernels.py): bf16 and float32.
+BF16_TOL, F32_TOL = 5e-2, 2e-5
+# A bf16 kernel is also held elementwise to BF16_RTOL * |want| + BF16_ROW * the
+# RMS of want's row (last axis).  The reference's 5e-2 is as large as a typical
+# output of causal attention at 2,048 tokens (row i's output has a std of about
+# sqrt(e / i)), so it says little of the late rows; a fixed limit far below it
+# fails a right kernel on the first rows, whose outputs are O(1) and whose p
+# the kernel and its twin round to bf16 (2^-8) at different scales.  Scaled by
+# the row, the limit is about 2e-3 at row 2,048 and 5e-2 at the first rows;
+# one bf16 ulp of the output is at most 2^-7 of it.
+BF16_RTOL, BF16_ROW = 1e-2, 5e-2
+# Reduced float32 models on the card against the CPU: sums in other orders
+# over 2 layers move logits by a few 1e-6; a fault moves them by 1e-2 or more.
+E2E_TOL = 1e-4
+# Teacher forcing, the reference's own tolerance (tests/test_models.py).
+TF_TOL = 2e-4
 # (matrix side, clusters k[, batch]) of the three serving phases
 DEDICATED = (262_144, 1024)
 SERVING = (65_536, 256)
 BATCHED = (16_384, 64, 8)
+# LM serving: qwen3-moe-30b-a3b at its published widths, 8 of its 48 layers;
+# (batch, prompt tokens, generated tokens).
+LM_ARCH, LM_LAYERS = "qwen3-moe-30b-a3b", 8
+LM_TRAFFIC = (4, 2048, 32)
 DEVICE = "cuda"
+SPMV_KERNELS = ("spmv_software_cache", "spmv_streaming", "spmv_streaming_batched", "ep_combine")
+LM_KERNELS = ("flash_attention", "moe_mlp")
 # The CUDA kernel each wrapper launches, as the profiler names it.
 SYMBOLS = {"spmv_software_cache": "smem_kernel", "spmv_streaming": "stream_kernel",
-           "spmv_streaming_batched": "stream_kernel", "ep_combine": "combine_kernel"}
+           "spmv_streaming_batched": "stream_kernel", "ep_combine": "combine_kernel",
+           "flash_attention": "flash_bf16_kernel", "moe_mlp": "gemm_bf16_kernel"}
 
 
 def _emit(obj) -> None:
@@ -285,8 +330,8 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def _bound(nbytes, flops, peak_flops=F32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -304,7 +349,7 @@ def _csr(n_rows, n_cols, rows, cols, vals, dev):
 
 
 def phase_kernels(plan, big, batched_plans, launches):
-    """Each kernel at the main path's shapes against its twin, timed."""
+    """Each SpMV kernel at the main path's shapes against its twin, timed."""
     import importlib
 
     import numpy as np
@@ -322,23 +367,9 @@ def phase_kernels(plan, big, batched_plans, launches):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def entry(name, replaces, run, plain, nbytes, flops, library, shapes):
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        err = (got.double() - want.double()).abs().max().item()
-        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL, msg=lambda m: f"{name}: {m}")
-        ms = _time_ms(run, 100)
-        # The kernel alone, from the profiler's trace: back-to-back launches
-        # timed by events cannot go below the wrapper's host cost per launch.
-        symbol = SYMBOLS[name]
-        device_ms = sum(v for key, v in _device_ms(run, 20).items() if symbol in key) or None
-        bound_ms, bound_by = _bound(nbytes, flops)
-        entries.append({
-            "name": name, "route": "cuda", "source": cu, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-            "device_ms": device_ms,
-            "plain_ms": _time_ms(plain, 20), "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": _time_ms(library, 50), "bytes": nbytes, "shapes": shapes,
-        })
+        entries.append(_kernel_entry(name, replaces, cu, launches[name], run, plain, library,
+                                     nbytes, flops, shapes, tol=TOL, peak_flops=F32_FLOPS,
+                                     iters=100))
 
     # Bounds count the bytes this run's data needs, each read or written
     # once: per valid task its value and x index (8 B; plan padding is in no
@@ -419,7 +450,302 @@ def phase_kernels(plan, big, batched_plans, launches):
           8 * n_entries + 4 * (n_rows + 1) + 4 * n_rows, n_entries,
           lambda: y_acc.index_add_(0, yg_flat, p_flat),
           {"k": k, "y_max": y_max, "n_rows": n_rows, "entries": n_entries})
-    _emit({"kernels": entries})
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# LM serving: prefill + greedy decode of qwen3-moe-30b-a3b
+# ---------------------------------------------------------------------------
+
+
+def phase_lm_serving():
+    """The port's run_serving path at full width, launches counted.
+
+    Drives ``serve_config`` (what ``run_serving`` hands a resolved config to)
+    with qwen3-moe-30b-a3b cut to LM_LAYERS layers: f32 master weights drawn
+    on the card from seed 0, bf16 compute copies (router f32) cast once before
+    the prompts (``cast_ms``), a batch of seeded prompts, prefill, then greedy
+    decode.  Counts are set to 0 just
+    before and read just after: flash attention runs once per layer in
+    prefill, the expert FFN once per layer in prefill and in every decode
+    step.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models.transformer import moe_capacity
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    b, s, gen = LM_TRAFFIC
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tokens, stats, state = serve_config(cfg, b, s, gen, seed=0)
+    launches = launch_counts()
+    want = {"flash_attention": cfg.n_layers, "moe_mlp": cfg.n_layers * gen}
+    for name in launches:
+        if launches[name] != want.get(name, 0):
+            raise AssertionError(f"lm_serving launches {launches}, expected {want}")
+    if (tuple(tokens.shape) != (b, gen) or int(tokens.min()) < 0
+            or int(tokens.max()) >= cfg.vocab_size):
+        raise AssertionError(f"lm_serving tokens {tuple(tokens.shape)} out of range")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    _emit({"phase": "lm_serving", "arch": cfg.name, "layers": cfg.n_layers,
+           "of_layers": get_config(LM_ARCH).n_layers, "params": n_params,
+           "batch": b, "prompt_len": s, "gen": gen,
+           "capacity": {"prefill": moe_capacity(cfg, b * s), "decode": moe_capacity(cfg, b)},
+           "cast_ms": stats["cast_s"] * 1e3, "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms_per_token": stats["decode_s"] * 1e3 / (gen - 1),
+           "tok_per_s": stats["tok_per_s"], "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "tokens_head": tokens[0, :8].tolist()})
+    return cfg, state, launches
+
+
+def bf16_scaled_err(got, want) -> float:
+    """The worst ``|got - want| / (BF16_RTOL |want| + BF16_ROW rms(want's row))``:
+    at most 1 passes."""
+    import torch
+
+    w = want.double()
+    err = (got.double() - w).abs()
+    limit = BF16_RTOL * w.abs() + BF16_ROW * w.square().mean(-1, keepdim=True).sqrt()
+    return torch.where(err == 0, 0.0, err / limit).max().item()
+
+
+def _kernel_entry(name, replaces, source, launches, run, plain, library, nbytes, flops,
+                  shapes, *, tol, peak_flops, iters):
+    """One kernel against its twin on the same card tensors, then timed.
+
+    ``ms`` is CUDA events over ``iters`` back-to-back launches (never below
+    the wrapper's host cost per launch); ``device_ms`` the kernel alone from
+    the profiler's trace; ``bound_ms`` the larger of ``nbytes`` over the
+    memory rate and ``flops`` over ``peak_flops``.  A bf16 output is held to
+    ``tol`` and to the scaled limit of :func:`bf16_scaled_err`.
+    """
+    import torch
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got.double() - want.double()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"{name} {shapes}: {m}")
+    scaled = bf16_scaled_err(got, want) if got.dtype == torch.bfloat16 else None
+    if scaled is not None and scaled > 1:
+        raise AssertionError(f"{name} {shapes}: error up to {scaled:.3g} times "
+                             f"{BF16_RTOL} |want| + {BF16_ROW} rms(row)")
+    del got, want
+    ms = _time_ms(run, iters)
+    reps = max(5, iters // 5)
+    for _ in range(3):  # a trace now and then holds no device events of a short kernel
+        device_ms = sum(v for key, v in _device_ms(run, reps).items() if SYMBOLS[name] in key)
+        if device_ms:
+            break
+    bound_ms, bound_by = _bound(nbytes, flops, peak_flops)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "tol": tol, "scaled_err": scaled,
+            "ms": ms,
+            "device_ms": device_ms or None, "plain_ms": _time_ms(plain, max(3, iters // 5)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": _time_ms(library, iters),
+            "bytes": nbytes, "flops": flops, "shapes": shapes}
+
+
+def phase_lm_kernels(cfg, state, launches):
+    """flash_attention and moe_mlp at the lm_serving shapes, bf16, against
+    their twins (5e-2, and 1e-2 |want| + 5e-2 rms(row) elementwise), timed beside their
+    bounds and one library call; and each in float32 at a smaller shape
+    against its twin (2e-5, no TF32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, moe_mlp
+    from repro_torch.kernels.ref import flash_attention_ref, moe_mlp_ref
+    from repro_torch.models.transformer import moe_capacity
+
+    dev = torch.device(DEVICE)
+    b, s, _ = LM_TRAFFIC
+    h, dh = cfg.n_heads, cfg.d_head
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    entries = []
+    # Prefill attention: head-repeated (B, H, S, Dh) bf16, causal.  The two
+    # products over the causal pairs (i >= j) on the tensor cores; q, k, v
+    # read and o written once.
+    q, k, v = (randn((b, h, s, dh)) for _ in range(3))
+    pairs = s * (s + 1) // 2
+    entries.append(_kernel_entry(
+        "flash_attention", "src/repro/kernels/flash_attention.py:77",
+        "src/repro_torch/kernels/csrc/flash_attention.cu", launches["flash_attention"],
+        lambda: flash_attention(q, k, v, causal=True),
+        lambda: flash_attention_ref(q, k, v, True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        4 * b * h * s * dh * 2, 4 * b * h * dh * pairs,
+        {"B": b, "H": h, "S": s, "T": s, "Dh": dh, "causal": True},
+        tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=20))
+    del q, k, v
+
+    # The expert FFN at the prefill and decode capacities, on layer 0's
+    # bf16 expert weights: three products per slab row; x, the weights and
+    # the output moved once.
+    moe = state["compute"].blocks[0].ffn.moe
+    wg, wu, wd = moe.w_gate, moe.w_up, moe.w_down
+    e, d, f = wg.shape
+
+    def moe_entry(cap, iters):
+        x = randn((e, cap, d), wg.dtype)
+
+        def library():
+            return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+
+        return _kernel_entry(
+            "moe_mlp", "src/repro/kernels/moe_mlp.py:37",
+            "src/repro_torch/kernels/csrc/moe_mlp.cu", launches["moe_mlp"],
+            lambda: moe_mlp(x, wg, wu, wd), lambda: moe_mlp_ref(x, wg, wu, wd), library,
+            2 * (2 * e * cap * d + 3 * e * d * f), 6 * e * cap * d * f,
+            {"E": e, "C": cap, "D": d, "F": f}, tol=BF16_TOL, peak_flops=BF16_FLOPS,
+            iters=iters)
+
+    prefill = moe_entry(moe_capacity(cfg, b * s), 10)
+    prefill["decode"] = moe_entry(moe_capacity(cfg, b), 20)
+    entries.append(prefill)
+
+    # float32 at smaller shapes, no TF32 in the twins' products.
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    f32 = {}
+    q, k, v = (randn((1, 4, 256, dh), torch.float32) for _ in range(3))
+    got, want = flash_attention(q, k, v, causal=True), flash_attention_ref(q, k, v, True)
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    f32["flash_attention"] = {"shape": [1, 4, 256, dh],
+                              "max_abs_err": (got - want).abs().max().item(),
+                              "out_abs_max": got.abs().max().item()}
+    x = randn((8, 64, d), torch.float32)
+    w = [randn(shape, torch.float32, shape[1] ** -0.5)
+         for shape in ((8, d, f), (8, d, f), (8, f, d))]
+    got, want = moe_mlp(x, *w), moe_mlp_ref(x, *w)
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    f32["moe_mlp"] = {"shape": [8, 64, d, f], "max_abs_err": (got - want).abs().max().item(),
+                      "out_abs_max": got.abs().max().item()}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    _emit({"phase": "lm_kernels", "tol": {"bf16": BF16_TOL, "bf16_rtol": BF16_RTOL,
+                                          "bf16_row": BF16_ROW, "f32": F32_TOL},
+           "f32": f32,
+           "bf16": {en["name"]: [en["max_abs_err"], en["scaled_err"]] for en in entries},
+           "moe_decode_bf16": [prefill["decode"]["max_abs_err"],
+                               prefill["decode"]["scaled_err"]]})
+    return entries
+
+
+def phase_lm_profile(cfg, state):
+    """Where a warm prefill and a warm decode step spend their time.
+
+    Wall time on the host clock (ending in a synchronize), and the device's
+    busy time by kernel from torch.profiler, whose ratio to the wall time
+    gives the device's idle share.  The warm prefill's logits are checked
+    for shape and finiteness.
+    """
+    import time as _time
+
+    import torch
+
+    model, params, prompt = state["model"], state["compute"], state["prompt"]
+    b, s, gen = LM_TRAFFIC
+    out = {"phase": "lm_profile"}
+    cache = None
+
+    def prefill():
+        nonlocal cache
+        logits, cache = model.prefill(params, {"tokens": prompt}, s + gen)
+        return logits
+
+    def decode():
+        tok = torch.zeros((b, 1), dtype=torch.long, device=prompt.device)
+        return model.decode_step(params, cache, {"tokens": tok}, s)[0]
+
+    for name, fn in (("prefill", prefill), ("decode_step", decode)):
+        t0 = _time.perf_counter()
+        logits = fn()
+        torch.cuda.synchronize()
+        wall_ms = (_time.perf_counter() - t0) * 1e3
+        if tuple(logits.shape) != (b, cfg.vocab_size) or not torch.isfinite(logits).all():
+            raise AssertionError(f"lm {name}: logits {tuple(logits.shape)} not finite")
+        device = _device_ms(fn, 1)
+        busy = sum(device.values())
+        ours = {k: sum(v for key, v in device.items() if SYMBOLS[k] in key) for k in LM_KERNELS}
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / wall_ms, "kernels_ms": ours,
+                     "device_top": sorted(device.items(), key=lambda kv: -kv[1])[:10]}
+    _emit(out)
+
+
+def phase_lm_checks():
+    """The model end to end, float32, against the twins and against itself.
+
+    (1) Reduced qwen3-moe-30b-a3b and granite-3-8b: the same weights (drawn
+    on the CPU) and prompt through prefill and three decode steps, fed the
+    CPU's tokens, on the card (kernels) and on the CPU (twins).  (2) Teacher
+    forcing at qwen3-moe-30b-a3b's full width, 2 layers, B = 2, S = 256,
+    capacity factor 16 (nothing dropped): prefill(S) then decode of token S
+    equals prefill(S + 1)'s last logits.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    dev = torch.device(DEVICE)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {"phase": "lm_checks", "tf32": False, "tol": {"card_vs_cpu": E2E_TOL,
+                                                       "teacher_forcing": TF_TOL}}
+    for arch in (LM_ARCH, "granite-3-8b"):
+        cfg = get_config(arch, reduced=True)
+        cpu, card = Model(cfg, device="cpu"), Model(cfg, device=dev)
+        params = cpu.init(0)
+        params_card = params.map(lambda _, w: w.to(dev))
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (2, 24)))
+        want, cache = cpu.prefill(params, {"tokens": tokens}, 27)
+        got, cache_card = card.prefill(params_card, {"tokens": tokens.to(dev)}, 27)
+        errs = [(got.cpu() - want).abs().max().item()]
+        for i in range(3):
+            tok = torch.argmax(want, -1)[:, None]
+            want, cache = cpu.decode_step(params, cache, {"tokens": tok}, 24 + i)
+            got, cache_card = card.decode_step(params_card, cache_card,
+                                               {"tokens": tok.to(dev)}, 24 + i)
+            errs.append((got.cpu() - want).abs().max().item())
+        if max(errs) > E2E_TOL:
+            raise AssertionError(f"{arch} reduced: card vs CPU logits differ by {errs}")
+        out[f"{arch}_reduced_max_abs_err"] = errs
+
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, compute_dtype="float32",
+                              moe=dataclasses.replace(full.moe, capacity_factor=16.0))
+    model = Model(cfg, device=dev)
+    params = model.init(1)
+    s = 256
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(2, cfg.vocab_size, (2, s + 1))).to(dev)
+    whole, _ = model.prefill(params, {"tokens": tokens}, s + 1)
+    _, cache = model.prefill(params, {"tokens": tokens[:, :s]}, s + 1)
+    step, _ = model.decode_step(params, cache, {"tokens": tokens[:, s:]}, s)
+    err = (step - whole).abs().max().item()
+    if not torch.isfinite(step).all() or err > TF_TOL:
+        raise AssertionError(f"teacher forcing at full width: logits differ by {err}")
+    out["teacher_forcing"] = {"layers": 2, "batch": 2, "prompt": s, "max_abs_err": err,
+                              "logit_abs_max": whole.abs().max().item()}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    _emit(out)
 
 
 def main() -> int:
@@ -448,9 +774,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = [ln.strip() for ln in _build.ptxas_report("ep_spmv").splitlines()
-             if "Function properties" in ln or "Used" in ln or "spill" in ln
-             or "Compiling entry" in ln]
+    ptxas = [ln.strip() for name in ("ep_spmv", "flash_attention", "moe_mlp")
+             for ln in _build.ptxas_report(name).splitlines()
+             if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     rng = np.random.default_rng(0)
@@ -460,11 +786,19 @@ def main() -> int:
         phase_graph_serving()
         batched_plans = phase_batched(svc)
         launches = launch_counts()
-        missing = [name for name, n in launches.items() if n == 0]
+        missing = [name for name in SPMV_KERNELS if launches[name] == 0]
         if missing:
-            raise AssertionError(f"kernels not launched on the main path: {missing}")
-        phase_kernels(plan, big, batched_plans, launches)
+            raise AssertionError(f"kernels not launched on the SpMV path: {missing}")
+        entries = phase_kernels(plan, big, batched_plans, launches)
         phase_profile(svc, big, batched_plans[0][1])
+
+    cfg, state, launches = phase_lm_serving()
+    entries += phase_lm_kernels(cfg, state, launches)
+    phase_lm_profile(cfg, state)
+    del state
+    torch.cuda.empty_cache()
+    phase_lm_checks()
+    _emit({"kernels": entries})
     _emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -1,16 +1,19 @@
 """Hand-written Hopper kernels of the port and their entry points.
 
-``ep_spmv`` holds the CUDA kernels' wrappers and plain PyTorch twins; ``ops``
-the pack -> kernel -> combine entry points; ``ref`` the COO oracle.
+``ep_spmv`` holds the SpMV kernels' wrappers and plain PyTorch twins; ``ops``
+the pack -> kernel -> combine entry points; ``flash_attention`` and
+``moe_mlp`` the serving path's attention and expert-FFN kernels; ``ref`` the
+plain oracles (the latter two's twins).  :func:`launch_counts` reads every
+wrapper's launch count.
 """
 from .ep_spmv import (
     ep_combine,
-    launch_counts,
-    reset_launch_counts,
     spmv_software_cache,
     spmv_streaming,
     spmv_streaming_batched,
 )
+from .flash_attention import flash_attention
+from .moe_mlp import moe_mlp
 from .ops import (
     BucketSpec,
     PaddedOperands,
@@ -26,9 +29,11 @@ __all__ = [
     "PaddedOperands",
     "ep_combine",
     "ep_spmv",
+    "flash_attention",
     "launch_counts",
     "make_bucketed_spmv_fn",
     "make_ep_spmv_fn",
+    "moe_mlp",
     "pad_plan_operands",
     "reset_launch_counts",
     "spmv_hbm_traffic_model",
@@ -36,3 +41,17 @@ __all__ = [
     "spmv_streaming",
     "spmv_streaming_batched",
 ]
+
+_KERNELS = (spmv_software_cache, spmv_streaming, spmv_streaming_batched, ep_combine,
+            moe_mlp, flash_attention)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`, by wrapper name."""
+    return {fn.__name__: fn.launches for fn in _KERNELS}

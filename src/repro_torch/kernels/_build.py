@@ -18,7 +18,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "find_nvcc", "library", "ptxas_report"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "find_nvcc", "launch", "library",
+           "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_entry_points: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def find_nvcc() -> str:
@@ -96,3 +100,22 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def launch(name: str, symbol: str, argtypes, device: torch.device, *args) -> None:
+    """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` on the current stream.
+
+    ``argtypes`` end with the stream's ``c_void_p``; tensors in ``args`` go
+    as their data pointers.  The entry point returns ``cudaGetLastError()``
+    after its launches, and a nonzero code raises ``RuntimeError``.
+    """
+    fn = _entry_points.get((name, symbol))
+    if fn is None:  # typed once per entry point: a launch costs host time
+        fn = getattr(library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entry_points[(name, symbol)] = fn
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed to launch: CUDA error {err}")

@@ -67,22 +67,8 @@ _ARGTYPES = {
 }
 
 
-_entry_points: dict = {}
-
-
 def _launch(entry: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    """Call a C entry point: tensors go as their data pointers, then the stream."""
-    fn = _entry_points.get((entry, dtype))
-    if fn is None:  # typed once per entry point: a launch costs host time
-        fn = getattr(_build.library("ep_spmv"), f"{entry}_{_SUFFIX[dtype]}")
-        fn.argtypes = _ARGTYPES[entry]
-        fn.restype = ctypes.c_int
-        _entry_points[(entry, dtype)] = fn
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry}_{_SUFFIX[dtype]} failed to launch: CUDA error {err}")
+    _build.launch("ep_spmv", f"{entry}_{_SUFFIX[dtype]}", _ARGTYPES[entry], device, *args)
 
 
 def _check_cuda(floats: dict, ints: dict) -> tuple[torch.dtype, torch.device]:

@@ -1,12 +1,18 @@
-"""Serving drivers of the port: service-backed EP-SpMV serving on the device.
+"""Serving drivers of the port: LM prefill/decode and service-backed EP-SpMV serving.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+        --reduced --batch 4 --prompt-len 32 --gen 16
 
     PYTHONPATH=src python -m repro_torch.launch.serve --graph --requests 16 --churn 0.01
 
     PYTHONPATH=src python -m repro_torch.launch.serve --graph --batched \
         --clients 4 --graphs 48 --max-batch 8 --max-wait-ms 2
 
-Port of the ``--graph`` and ``--graph --batched`` modes of
-``src/repro/launch/serve.py``.  The ``--graph`` mode demonstrates the
+Port of the ``--arch``, ``--graph`` and ``--graph --batched`` modes of
+``src/repro/launch/serve.py``.  The ``--arch`` mode prefills a batch of
+seeded random prompts on a randomly initialised model of that architecture
+(the ``dense`` and ``moe`` families) and greedily decodes from it, through
+the flash-attention and expert-FFN kernels.  The ``--graph`` mode demonstrates the
 paper-§4.2 serving architecture: a stream of SpMV requests over a (mostly)
 repeated matrix hits the PartitionService's fingerprint cache; a churn batch
 triggers an *async* incremental repartition on the optimization thread while
@@ -15,7 +21,7 @@ swaps when the new plan lands.  With ``--batched``, concurrent clients push
 distinct small matrices through ``GraphServer.submit``, and same-bucket
 requests share one stacked kernel launch.
 
-Both run on the CUDA device (the functions take ``device="cpu"`` to run
+All run on the CUDA device (the functions take ``device="cpu"`` to run
 the plain PyTorch versions).  Every timing ends in a device synchronize.
 """
 from __future__ import annotations
@@ -27,15 +33,85 @@ import time
 
 import numpy as np
 
+import torch
+
+from ..configs import get_config
 from ..core import DoubleBuffer, PartitionService, synthetic_bipartite_graph
 from ..device import resolve_device, synchronize
 from ..kernels import make_ep_spmv_fn, spmv_hbm_traffic_model
-from ..runtime import GraphRequest, GraphServer
+from ..models import Model
+from ..models.transformer import check_supported
+from ..runtime import GraphRequest, GraphServer, make_decode_step, make_prefill_step
 
-__all__ = ["run_graph_serving", "run_batched_graph_serving", "main"]
+__all__ = ["run_serving", "serve_config", "run_graph_serving", "run_batched_graph_serving",
+           "main"]
 
 # Drivers of the reference's --graph family that this port does not carry yet.
-_NOT_PORTED = ("--tenants", "--replicas", "--overload", "--arch")
+_NOT_PORTED = ("--tenants", "--replicas", "--overload")
+
+
+def run_serving(
+    arch: str,
+    batch: int = 4,
+    prompt_len: int = 32,
+    gen: int = 16,
+    reduced: bool = True,
+    seed: int = 0,
+    device=None,
+):
+    """Prefill a batch of prompts, then greedy-decode ``gen`` tokens.
+
+    Returns (tokens (B, gen), timing dict)."""
+    tokens, stats, _ = serve_config(get_config(arch, reduced=reduced), batch, prompt_len, gen,
+                                    seed, device)
+    return tokens, stats
+
+
+def serve_config(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, device=None):
+    """:func:`run_serving` on a resolved config (a caller may cut its depth).
+
+    The compute copies of the master weights are cast once, before the
+    prompts arrive (``cast_s``), and every step runs on them.  Returns
+    ``(tokens (B, gen), timing dict, state)``; ``state`` holds the
+    ``model``, its master ``params``, their ``compute`` copies and the
+    ``prompt`` for a caller that goes on with them.  Every timing ends in a
+    device synchronize.
+    """
+    dev = resolve_device(device)
+    model = Model(cfg, device=dev)
+    params = model.init(seed)
+    max_len = prompt_len + gen
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    prefill = make_prefill_step(model, max_len=max_len)
+    decode = make_decode_step(model)
+
+    synchronize(dev)
+    t_cast = time.perf_counter()
+    compute = model.compute_params(params)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    tok, cache = prefill(compute, {"tokens": prompt})
+    tok = tok[:, None]
+    synchronize(dev)
+    t_prefill = time.perf_counter() - t0
+
+    out = [tok]
+    t1 = time.perf_counter()
+    for i in range(gen - 1):
+        tok, cache = decode(compute, cache, tok, prompt_len + i)
+        out.append(tok)
+    synchronize(dev)
+    t_decode = time.perf_counter() - t1
+    stats = {
+        "device": str(dev),
+        "cast_s": t0 - t_cast,
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+    }
+    state = {"model": model, "params": params, "compute": compute, "prompt": prompt}
+    return torch.cat(out, dim=1), stats, state
 
 
 def run_graph_serving(
@@ -249,6 +325,11 @@ def run_batched_graph_serving(
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--graph", action="store_true",
                     help="serve EP-SpMV requests through the PartitionService")
     ap.add_argument("--requests", type=int, default=16)
@@ -272,8 +353,21 @@ def main(argv=None):
     if given:
         ap.error(f"{', '.join(given)}: not ported yet to repro_torch "
                  "(use python -m repro.launch.serve)")
+    if args.arch:
+        try:
+            check_supported(get_config(args.arch, reduced=args.reduced))
+        except KeyError as exc:
+            ap.error(str(exc))
+        except NotImplementedError as exc:
+            ap.error(f"--arch {args.arch}: not ported yet to repro_torch ({exc}); "
+                     "use python -m repro.launch.serve")
     if not args.graph:
-        ap.error("--graph is required")
+        if not args.arch:
+            ap.error("--arch is required unless --graph is given")
+        tokens, stats = run_serving(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                                    gen=args.gen, reduced=args.reduced)
+        print(f"generated {tuple(tokens.shape)} tokens; {stats}")
+        return 0
     if args.batched:
         stats = run_batched_graph_serving(
             clients=args.clients, graphs=args.graphs,

@@ -1,4 +1,4 @@
-"""Request layer of the port: typed EP-SpMV requests served on the device."""
+"""Request layer of the port: typed EP-SpMV requests and LM serving steps on the device."""
 from .request import (
     BucketKey,
     BucketPolicy,
@@ -9,6 +9,7 @@ from .request import (
     ServeResult,
     resolve_plan,
 )
+from .serve import make_decode_step, make_prefill_step
 
 __all__ = [
     "BucketKey",
@@ -18,5 +19,7 @@ __all__ = [
     "GraphServer",
     "ServeInfo",
     "ServeResult",
+    "make_decode_step",
+    "make_prefill_step",
     "resolve_plan",
 ]

@@ -1,7 +1,8 @@
-"""The port's copies of the host core give the reference's arrays exactly.
+"""The port's copies of the host core and configs give the reference's exactly.
 
-``src/repro_torch/core`` holds verbatim copies of ``src/repro/core`` modules;
-these tests catch the two drifting apart.
+``src/repro_torch/core`` and ``src/repro_torch/configs`` hold verbatim copies
+of ``src/repro/core`` and ``src/repro/configs`` modules; these tests catch
+the two drifting apart.
 """
 import dataclasses
 
@@ -13,6 +14,9 @@ import repro_torch.core as port_core
 from repro.core.partition_service import graph_fingerprint as ref_fingerprint
 from repro_torch.core.partition_service import graph_fingerprint as port_fingerprint
 
+CONFIG_COPIES = ["__init__", "_register_all", "base", "granite_3_8b", "jamba_1_5_large_398b",
+                 "mamba2_2_7b", "minitron_8b", "phi4_mini_3_8b", "qwen2_moe_a2_7b", "qwen2_vl_2b",
+                 "qwen3_32b", "qwen3_moe_30b_a3b", "seamless_m4t_medium"]
 COPIES = ["graph", "refine", "coarsen", "partition", "transform", "baselines", "metrics",
           "edge_partition", "reorder", "admission", "plan_cache", "plan_scheduler",
           "partition_service"]
@@ -60,3 +64,21 @@ def test_copy_is_verbatim_below_its_header(name):
         end = body.index("    @property\n    def m(self)")
         body = body[:extra] + body[end:]
     assert body == ref
+
+
+@pytest.mark.parametrize("name", CONFIG_COPIES)
+def test_config_copy_is_verbatim_below_its_header(name):
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    ref = (src / "repro" / "configs" / f"{name}.py").read_text()
+    header, body = (src / "repro_torch" / "configs" / f"{name}.py").read_text().split("\n", 1)
+    assert header.startswith("# Copied") and f"src/repro/configs/{name}.py" in header
+    assert body == ref
+
+
+def test_every_config_is_copied():
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    assert sorted(p.stem for p in (src / "repro" / "configs").glob("*.py")) == sorted(CONFIG_COPIES)

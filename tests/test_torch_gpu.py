@@ -1,4 +1,4 @@
-"""CUDA kernels against their plain twins, and byte-identity on the card.
+"""CUDA kernels against their plain twins, byte-identity, and the LM path on the card.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -12,13 +12,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     PartitionService,
     build_pack_plan,
     edge_partition,
     synthetic_bipartite_graph,
 )
+from repro_torch.kernels import flash_attention, launch_counts, moe_mlp  # noqa: E402
 from repro_torch.kernels.ops import ep_spmv  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref, moe_mlp_ref  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.runtime import GraphRequest, GraphServer  # noqa: E402
 
 K = importlib.import_module("repro_torch.kernels.ep_spmv")
@@ -103,3 +107,100 @@ def test_server_byte_identity_on_card(cuda_device, mode):
         assert res.info.batch_size == 3
         assert torch.equal(res.y.cpu(), y1)  # stacked batch == batch of one
         assert torch.equal(y_own, y1)  # bucketed == dedicated
+
+
+# ---------------------------------------------------------------------------
+# The serving path's kernels: flash_attention and moe_mlp
+# ---------------------------------------------------------------------------
+
+# The reference's tolerances (tests/test_kernels.py): 2e-5 in float32, 5e-2 in bf16.
+KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.fixture()
+def no_tf32():
+    """Float32 checks run the twins' products in full float32 (no TF32)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _randn(shape, dtype, dev, seed, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,t,d,causal", [
+    (1, 2, 128, 128, 64, True),
+    (2, 2, 192, 192, 32, False),
+    (1, 2, 100, 100, 16, True),     # ragged S = T
+    (1, 2, 64, 200, 128, False),    # T != S, ragged T
+    (1, 1, 130, 70, 256, True),     # S > T, largest head
+    (1, 4, 1100, 1100, 128, True),  # 18 key tiles, ragged
+])
+def test_flash_attention_matches_twin(cuda_device, no_tf32, dtype, b, h, s, t, d, causal):
+    q = _randn((b, h, s, d), dtype, cuda_device, 0)
+    k = _randn((b, h, t, d), dtype, cuda_device, 1)
+    v = _randn((b, h, t, d), dtype, cuda_device, 2)
+    before = launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, causal)
+    tol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        # Late rows' outputs are ~sqrt(e / i) in size, well under 5e-2, so each
+        # element is also held to 1e-2 |want| + 5e-2 of its row's RMS
+        # (chip_smoke.py's limit; one bf16 ulp is at most 2^-7 of a value).
+        got, want = out.double(), want.double()
+        limit = 1e-2 * want.abs() + 5e-2 * want.square().mean(-1, keepdim=True).sqrt()
+        assert bool(((got - want).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("e,c,d,f", [
+    (4, 128, 64, 128),
+    (8, 100, 32, 64),    # capacity not a multiple of the 64-row tile
+    (3, 8, 2048, 768),   # decode-sized capacity at qwen3-moe's widths
+])
+def test_moe_mlp_matches_twin(cuda_device, no_tf32, dtype, e, c, d, f):
+    x = _randn((e, c, d), dtype, cuda_device, 0)
+    wg = _randn((e, d, f), dtype, cuda_device, 1, d ** -0.5)
+    wu = _randn((e, d, f), dtype, cuda_device, 2, d ** -0.5)
+    wd = _randn((e, f, d), dtype, cuda_device, 3, f ** -0.5)
+    before = launch_counts()["moe_mlp"]
+    out = moe_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_mlp"] == before + 1
+    tol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(out.float(), moe_mlp_ref(x, wg, wu, wd).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b"])
+def test_reduced_model_on_card_matches_cpu(cuda_device, no_tf32, arch):
+    """Same weights and prompt: the kernels on the card against the twins on
+    the CPU, through prefill and three decode steps fed the CPU's tokens.
+    Float32 throughout; 1e-4 covers sums taken in other orders over 2 layers."""
+    cfg = get_config(arch, reduced=True)
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
+    params = cpu.init(0)
+    params_card = params.map(lambda _, w: w.to(cuda_device))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (2, 24)))
+    want, cache = cpu.prefill(params, {"tokens": tokens}, 27)
+    before = launch_counts()
+    got, cache_card = card.prefill(params_card, {"tokens": tokens.to(cuda_device)}, 27)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        tok = torch.argmax(want, -1)[:, None]
+        want, cache = cpu.decode_step(params, cache, {"tokens": tok}, 24 + i)
+        got, cache_card = card.decode_step(params_card, cache_card,
+                                           {"tokens": tok.to(cuda_device)}, 24 + i)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + cfg.n_layers
+    if cfg.moe is not None:
+        assert after["moe_mlp"] == before["moe_mlp"] + 4 * cfg.n_layers

@@ -83,7 +83,7 @@ class TestDrivers:
         np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
     @pytest.mark.parametrize("flag", ["--tenants 3", "--replicas 2", "--overload",
-                                      "--arch granite-3-8b"])
+                                      "--arch mamba2-2.7b"])
     def test_unported_modes_are_named(self, flag, capsys):
         with pytest.raises(SystemExit) as exc:
             port_serve.main(["--graph", *flag.split()])
@@ -92,7 +92,8 @@ class TestDrivers:
 
 
 class TestDeviceRule:
-    @pytest.mark.parametrize("entry", ["graph_serving", "batched", "ep_fn", "bucket_fn"])
+    @pytest.mark.parametrize("entry", ["graph_serving", "batched", "ep_fn", "bucket_fn",
+                                       "lm_serving"])
     def test_default_device_without_cuda_raises(self, entry, monkeypatch):
         edges, rows, cols = synthetic_bipartite_graph(32, 32, 2, seed=0)
         labels = edge_partition(edges, 2, method="ep", seed=0).labels
@@ -104,6 +105,8 @@ class TestDeviceRule:
                 port_serve.run_graph_serving(n_rows=64, n_cols=64, k=2)
             elif entry == "batched":
                 port_serve.run_batched_graph_serving(graphs=1)
+            elif entry == "lm_serving":
+                port_serve.run_serving("granite-3-8b", batch=1, prompt_len=4, gen=2)
             elif entry == "ep_fn":
                 make_ep_spmv_fn(plan, np.ones(rows.shape[0], np.float32))
             else:
