@@ -47,11 +47,19 @@ held against its twin at the shapes that run gave it (bf16: 5e-2, and
 1e-2 |want| + 5e-2 rms(row) elementwise) and in
 float32 at a smaller shape (2e-5), and timed beside its bound (the larger
 of its bytes over the memory rate and its products over the bf16 tensor-core
-rate), its twin and one library call (SDPA; three ``bmm`` and a SiLU); a warm
+rate), its twin and one library call (SDPA; three ``bmm`` and a SiLU):
+flash attention on the un-repeated K/V prefill passes (4 kv heads) and on
+head-repeated K/V, the expert FFN at the prefill capacity and at the decode
+capacity on a dense slab and on a slab routed through layer 0's router, whose
+bound counts only the experts that hold a pair; a warm
 prefill and a warm decode step are profiled (wall, device busy by kernel,
 idle share); and the model is checked end to end in float32: reduced
 qwen3-moe and granite on the card against the CPU (1e-4), and prefill +
 decode against teacher forcing at full width, 2 layers (2e-4).
+
+The build phase also counts the HGMMA (wgmma) and UTMALDG (TMA load)
+instructions in each kernel of the flash-attention and expert-FFN libraries
+(``cuobjdump -sass``) and fails if a bf16 kernel lacks either.
 
 Any failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the repository beside it, the script prints no result and exits 1.
@@ -98,14 +106,41 @@ LM_TRAFFIC = (4, 2048, 32)
 DEVICE = "cuda"
 SPMV_KERNELS = ("spmv_software_cache", "spmv_streaming", "spmv_streaming_batched", "ep_combine")
 LM_KERNELS = ("flash_attention", "moe_mlp")
-# The CUDA kernel each wrapper launches, as the profiler names it.
-SYMBOLS = {"spmv_software_cache": "smem_kernel", "spmv_streaming": "stream_kernel",
-           "spmv_streaming_batched": "stream_kernel", "ep_combine": "combine_kernel",
-           "flash_attention": "flash_bf16_kernel", "moe_mlp": "gemm_bf16_kernel"}
+# The CUDA kernels each wrapper launches (bf16 for the LM ones), as the
+# profiler names them.
+SYMBOLS = {"spmv_software_cache": ("smem_kernel",), "spmv_streaming": ("stream_kernel",),
+           "spmv_streaming_batched": ("stream_kernel",), "ep_combine": ("combine_kernel",),
+           "flash_attention": ("flash_bf16_kernel",),
+           "moe_mlp": ("gemm_bf16_kernel", "gemm_swap_bf16_kernel")}
+# Hopper's tensor-core and TMA-load instructions, counted in the LM kernels' SASS.
+SASS_OPS = ("HGMMA", "UTMALDG")
 
 
 def _emit(obj) -> None:
     print(json.dumps(obj, default=str), flush=True)
+
+
+def _is_kernel(name, key) -> bool:
+    """Whether the profiler's kernel ``key`` is one that wrapper ``name`` launches."""
+    return any(sym in key for sym in SYMBOLS[name])
+
+
+def sass_counts(name) -> dict:
+    """SASS_OPS instructions in each kernel of ``csrc/<name>.cu``'s library
+    (``cuobjdump -sass``), by the kernel's mangled name."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    counts, fn = {}, None
+    for line in _build.sass(name).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+        elif fn is not None:
+            for op in SASS_OPS:
+                fn[op] += op in line
+    return counts
 
 
 def _nvidia_smi() -> str:
@@ -543,7 +578,7 @@ def _kernel_entry(name, replaces, source, launches, run, plain, library, nbytes,
     ms = _time_ms(run, iters)
     reps = max(5, iters // 5)
     for _ in range(3):  # a trace now and then holds no device events of a short kernel
-        device_ms = sum(v for key, v in _device_ms(run, reps).items() if SYMBOLS[name] in key)
+        device_ms = sum(v for key, v in _device_ms(run, reps).items() if _is_kernel(name, key))
         if device_ms:
             break
     bound_ms, bound_by = _bound(nbytes, flops, peak_flops)
@@ -559,48 +594,65 @@ def phase_lm_kernels(cfg, state, launches):
     """flash_attention and moe_mlp at the lm_serving shapes, bf16, against
     their twins (5e-2, and 1e-2 |want| + 5e-2 rms(row) elementwise), timed beside their
     bounds and one library call; and each in float32 at a smaller shape
-    against its twin (2e-5, no TF32)."""
+    against its twin (2e-5, no TF32).
+
+    Flash attention on the un-repeated K/V the prefill passes (Hkv = 4; the
+    main entry) and on head-repeated K/V (``head_repeated``, the reference's layout).
+    The expert FFN at the prefill capacity (the main entry), and at the
+    decode capacity on a dense random slab (``decode``, every expert busy) and on a
+    routed slab built as moe_ffn builds it, 4 tokens through layer 0's router
+    (``decode_routed``), whose bound counts only the experts that hold a pair.
+    """
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, moe_mlp
     from repro_torch.kernels.ref import flash_attention_ref, moe_mlp_ref
+    from repro_torch.models.moe import dispatch, route
     from repro_torch.models.transformer import moe_capacity
 
     dev = torch.device(DEVICE)
     b, s, _ = LM_TRAFFIC
-    h, dh = cfg.n_heads, cfg.d_head
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     gen = torch.Generator(device=dev).manual_seed(7)
 
     def randn(shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     entries = []
-    # Prefill attention: head-repeated (B, H, S, Dh) bf16, causal.  The two
-    # products over the causal pairs (i >= j) on the tensor cores; q, k, v
-    # read and o written once.
-    q, k, v = (randn((b, h, s, dh)) for _ in range(3))
+    # Prefill attention, bf16, causal.  The two products over the causal
+    # pairs (i >= j) on the tensor cores; q, k, v read and o written once.
     pairs = s * (s + 1) // 2
-    entries.append(_kernel_entry(
-        "flash_attention", "src/repro/kernels/flash_attention.py:77",
-        "src/repro_torch/kernels/csrc/flash_attention.cu", launches["flash_attention"],
-        lambda: flash_attention(q, k, v, causal=True),
-        lambda: flash_attention_ref(q, k, v, True),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        4 * b * h * s * dh * 2, 4 * b * h * dh * pairs,
-        {"B": b, "H": h, "S": s, "T": s, "Dh": dh, "causal": True},
-        tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=20))
+
+    def flash_entry(q, k, v, **library_kw):
+        return _kernel_entry(
+            "flash_attention", "src/repro/kernels/flash_attention.py:77",
+            "src/repro_torch/kernels/csrc/flash_attention.cu", launches["flash_attention"],
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: flash_attention_ref(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, **library_kw),
+            2 * (q.numel() + k.numel()) * 2, 4 * b * h * dh * pairs,
+            {"B": b, "H": h, "Hkv": k.shape[1], "S": s, "T": s, "Dh": dh, "causal": True},
+            tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=20)
+
+    q, k, v = randn((b, h, s, dh)), randn((b, hkv, s, dh)), randn((b, hkv, s, dh))
+    flash = flash_entry(q, k, v, enable_gqa=True)
+    g = h // hkv
+    flash["head_repeated"] = flash_entry(q, k.repeat_interleave(g, 1).contiguous(),
+                                         v.repeat_interleave(g, 1).contiguous())
+    entries.append(flash)
     del q, k, v
 
-    # The expert FFN at the prefill and decode capacities, on layer 0's
-    # bf16 expert weights: three products per slab row; x, the weights and
-    # the output moved once.
+    # The expert FFN on layer 0's bf16 expert weights: three products per
+    # slab row that holds a token; x read, the output written and the
+    # weights of every expert that has to be computed read once.
     moe = state["compute"].blocks[0].ffn.moe
     wg, wu, wd = moe.w_gate, moe.w_up, moe.w_down
     e, d, f = wg.shape
 
-    def moe_entry(cap, iters):
-        x = randn((e, cap, d), wg.dtype)
+    def moe_entry(x, iters, experts=e, rows=None):
+        cap = x.shape[1]
+        rows = e * cap if rows is None else rows
 
         def library():
             return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
@@ -609,22 +661,31 @@ def phase_lm_kernels(cfg, state, launches):
             "moe_mlp", "src/repro/kernels/moe_mlp.py:37",
             "src/repro_torch/kernels/csrc/moe_mlp.cu", launches["moe_mlp"],
             lambda: moe_mlp(x, wg, wu, wd), lambda: moe_mlp_ref(x, wg, wu, wd), library,
-            2 * (2 * e * cap * d + 3 * e * d * f), 6 * e * cap * d * f,
-            {"E": e, "C": cap, "D": d, "F": f}, tol=BF16_TOL, peak_flops=BF16_FLOPS,
-            iters=iters)
+            2 * (2 * e * cap * d + 3 * experts * d * f), 6 * rows * d * f,
+            {"E": e, "C": cap, "D": d, "F": f, "experts_computed": experts, "rows": rows},
+            tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=iters)
 
-    prefill = moe_entry(moe_capacity(cfg, b * s), 10)
-    prefill["decode"] = moe_entry(moe_capacity(cfg, b), 20)
+    prefill = moe_entry(randn((e, moe_capacity(cfg, b * s), d), wg.dtype), 10)
+    cap = moe_capacity(cfg, b)
+    prefill["decode"] = moe_entry(randn((e, cap, d), wg.dtype), 20)
+    tokens = randn((b, d), wg.dtype)
+    _, _, ids = route(tokens, moe.router, cfg.moe.top_k)
+    slab, _, keep = dispatch(tokens, ids, e, cap)
+    occupied = int(torch.unique(ids).numel())
+    routed = moe_entry(slab, 20, experts=occupied, rows=int(keep.sum()))
+    routed["bound_all_experts_ms"] = prefill["decode"]["bound_ms"]
+    prefill["decode_routed"] = routed
     entries.append(prefill)
 
     # float32 at smaller shapes, no TF32 in the twins' products.
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     f32 = {}
-    q, k, v = (randn((1, 4, 256, dh), torch.float32) for _ in range(3))
+    q = randn((1, 4, 256, dh), torch.float32)
+    k, v = (randn((1, 2, 256, dh), torch.float32) for _ in range(2))  # 2 kv heads
     got, want = flash_attention(q, k, v, causal=True), flash_attention_ref(q, k, v, True)
     torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
-    f32["flash_attention"] = {"shape": [1, 4, 256, dh],
+    f32["flash_attention"] = {"shape": [1, 4, 256, dh], "kv_heads": 2,
                               "max_abs_err": (got - want).abs().max().item(),
                               "out_abs_max": got.abs().max().item()}
     x = randn((8, 64, d), torch.float32)
@@ -639,8 +700,12 @@ def phase_lm_kernels(cfg, state, launches):
                                           "bf16_row": BF16_ROW, "f32": F32_TOL},
            "f32": f32,
            "bf16": {en["name"]: [en["max_abs_err"], en["scaled_err"]] for en in entries},
+           "flash_head_repeated_bf16": [flash["head_repeated"]["max_abs_err"],
+                                        flash["head_repeated"]["scaled_err"]],
            "moe_decode_bf16": [prefill["decode"]["max_abs_err"],
-                               prefill["decode"]["scaled_err"]]})
+                               prefill["decode"]["scaled_err"]],
+           "moe_decode_routed_bf16": [routed["max_abs_err"], routed["scaled_err"]],
+           "occupied_experts": occupied})
     return entries
 
 
@@ -679,7 +744,7 @@ def phase_lm_profile(cfg, state):
             raise AssertionError(f"lm {name}: logits {tuple(logits.shape)} not finite")
         device = _device_ms(fn, 1)
         busy = sum(device.values())
-        ours = {k: sum(v for key, v in device.items() if SYMBOLS[k] in key) for k in LM_KERNELS}
+        ours = {k: sum(v for key, v in device.items() if _is_kernel(k, key)) for k in LM_KERNELS}
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                      "idle_share": 1.0 - busy / wall_ms, "kernels_ms": ours,
                      "device_top": sorted(device.items(), key=lambda kv: -kv[1])[:10]}
@@ -777,7 +842,13 @@ def main() -> int:
     ptxas = [ln.strip() for name in ("ep_spmv", "flash_attention", "moe_mlp")
              for ln in _build.ptxas_report(name).splitlines()
              if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    _emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    sass = {name: sass_counts(name) for name in LM_KERNELS}
+    _emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "sass": sass})
+    # The bf16 kernels run on wgmma and load through TMA.
+    lacking = [fn for name in LM_KERNELS for fn, n in sass[name].items()
+               if "bf16" in fn and not all(n.values())]
+    if lacking:
+        raise AssertionError(f"bf16 kernels without {' or '.join(SASS_OPS)}: {lacking}")
 
     rng = np.random.default_rng(0)
     reset_launch_counts()

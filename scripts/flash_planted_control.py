@@ -3,10 +3,12 @@
 
     python3 scripts/flash_planted_control.py
 
-Builds a copy of ``src/repro_torch/kernels/csrc/flash_attention.cu`` in a
-temporary directory in which every CTA whose q tile starts at row 1,792 or
-later skips key tile 1 (keys 64-127), and runs the kernel and that copy at
-the ``lm_serving`` shape (4 x 32 x 2,048 x 128, bf16, causal) on the inputs of
+Builds a copy of ``src/repro_torch/kernels/csrc`` (the flash-attention source
+and the header it includes) in a temporary directory, in which every CTA
+whose q tile starts at row 1,792 or later leaves out key tile 1 (keys
+128-255: its scores are masked like keys past the diagonal, so the barrier
+ring runs as before), and runs the kernel and that copy at the
+``lm_serving`` shape (4 x 32 x 2,048 x 128, bf16, causal) on the inputs of
 chip_smoke.py's ``lm_kernels`` phase.  Each output is held against the plain
 twin with chip_smoke.py's two bf16 checks: the reference's 5e-2 and the
 elementwise ``BF16_RTOL * |want| + BF16_ROW * rms(want's row)``.  Prints one JSON line with both
@@ -16,14 +18,17 @@ fails it.  Needs one CUDA device; the repository's sources are not changed.
 from __future__ import annotations
 
 import json
+import shutil
 import sys
 import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# The first key-tile loop of the file is flash_bf16_kernel's.
-LOOP = "  for (int it = 0; it < n_tiles; ++it) {\n"
-SKIP = LOOP + "    if (it == 1 && q0 >= 1792) continue;  // planted fault\n"
+# Where the bf16 kernel's softmax (softmax_tile) stores a masked score of the
+# key tile at k0 for this thread's row row0: rows from 1,792 on are exactly
+# the CTAs whose 128-row q tile starts there, and k0 == BN is key tile 1.
+ANCHOR = "    sc[i] = x;\n"
+SKIP = "    if (k0 == BN && row0 >= 1792) x = -CUDART_INF_F;  // planted fault\n" + ANCHOR
 
 
 def main() -> int:
@@ -54,13 +59,13 @@ def main() -> int:
 
     kernel = reading(flash_attention(q, k, v, causal=True))
     source = (_build.CSRC / "flash_attention.cu").read_text()
-    if source.count(LOOP) != 2:
-        raise RuntimeError("flash_attention.cu no longer has the two key-tile loops")
+    if source.count(ANCHOR) != 1:
+        raise RuntimeError("flash_attention.cu no longer stores each score once as `sc[i] = x;`")
     saved = _build.CSRC, _build.BUILD_DIR
     with tempfile.TemporaryDirectory() as tmp:
         csrc = Path(tmp) / "csrc"
-        csrc.mkdir()
-        (csrc / "flash_attention.cu").write_text(source.replace(LOOP, SKIP, 1))
+        shutil.copytree(_build.CSRC, csrc)
+        (csrc / "flash_attention.cu").write_text(source.replace(ANCHOR, SKIP))
         _build.CSRC, _build.BUILD_DIR = csrc, Path(tmp) / "build"
         _build._loaded.pop("flash_attention", None)
         _build._entry_points.clear()

@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so`` at the
-root of the checkout, where the hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  ``nvcc``'s
+root of the checkout, where the hash covers the source, every header in
+``csrc/`` (``*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.  ``nvcc``'s
 ``-Xptxas -v`` report (registers, shared memory and spills per kernel) is kept
 beside the library as ``<name>-<hash>.ptxas.txt``.  Nothing is built at import
 time: the first kernel launch builds what it needs, and :func:`build_all`
@@ -21,7 +22,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "find_nvcc", "launch", "library",
-           "ptxas_report"]
+           "ptxas_report", "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -52,14 +53,25 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:
     """The ``-Xptxas -v`` output saved when ``csrc/<name>.cu`` was built."""
     return _target(name).with_suffix(".ptxas.txt").read_text()
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the library of ``csrc/<name>.cu`` (built first if
+    needed), with the toolkit's ``cuobjdump`` from beside ``nvcc``."""
+    (lib,) = build_all([name])
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
 
 
 def build_all(names=None) -> list[Path]:

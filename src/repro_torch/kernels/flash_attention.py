@@ -2,13 +2,16 @@
 
 ``flash_attention(q, k, v, causal)`` computes what the Pallas kernel of
 ``src/repro/kernels/flash_attention.py`` computes: online-softmax attention
-over ``(B, H, S, Dh)`` queries and head-repeated ``(B, H, T, Dh)`` keys and
-values, f32 running max/sum/accumulator, ``p`` rounded to V's type before the
-``p v`` product, ``l`` clamped at 1e-20, and a top-left causal mask
-``qpos >= kpos``.  Any S and T are taken (the kernel masks the ragged edge).
+over ``(B, H, S, Dh)`` queries and ``(B, Hkv, T, Dh)`` keys and values, f32
+running max/sum/accumulator, ``p`` rounded to V's type before the ``p v``
+product, ``l`` clamped at 1e-20, and a top-left causal mask ``qpos >= kpos``.
+Grouped-query attention is taken as it is: ``Hkv`` divides ``H`` and q head
+``h`` reads kv head ``h // (H // Hkv)``, so nothing is head-repeated;
+``Hkv = H`` is the reference's head-repeated input.  Any S and T are taken
+(the kernel masks the ragged edge).
 
 The kernel lives in ``csrc/flash_attention.cu`` (bf16 on the tensor cores
-through ``mma.sync``, float32 on the CUDA cores) and is launched through
+through TMA and ``wgmma``, float32 on the CUDA cores) and is launched through
 ctypes on PyTorch's current stream.  Given CUDA tensors the wrapper launches
 it or raises; given CPU tensors it runs the twin
 :func:`~repro_torch.kernels.ref.flash_attention_ref`.  The wrapper counts its
@@ -30,22 +33,24 @@ __all__ = ["MAX_HEAD_DIM", "flash_attention"]
 MAX_HEAD_DIM = 256
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Attention of ``q (B, H, S, Dh)`` over ``k, v (B, H, T, Dh)`` -> ``(B, H, S, Dh)``.
+    """Attention of ``q (B, H, S, Dh)`` over ``k, v (B, Hkv, T, Dh)`` -> ``(B, H, S, Dh)``.
 
     Replaces ``src/repro/kernels/flash_attention.py::flash_attention``
     (``_flash_kernel``, grid ``(B*H, S/q_block)``).  At the serving path's
     prefill the tensor cores bound it (the two products), not device memory.
-    One CTA per (b*h, 64-row q tile) streams 64-row K/V tiles through shared
-    memory; causal CTAs stop at the diagonal tile.
+    One CTA per (b*h, 128-row q tile): a producer warp streams K/V tiles
+    through a TMA ring, two consumer warpgroups run both products on
+    ``wgmma``; causal CTAs stop at the diagonal tile.
     """
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("q must be (B, H, S, Dh) and k, v (B, H, T, Dh)")
+        raise ValueError("q must be (B, H, S, Dh) and k, v (B, Hkv, T, Dh)")
     b, h, s, dh = q.shape
-    if k.shape[:2] != (b, h) or k.shape[3] != dh:
+    hkv = k.shape[1]
+    if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or h % hkv:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal)
@@ -63,7 +68,8 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
         raise ValueError(f"B * H = {b * h} exceeds the kernel's grid (65,535)")
     out = torch.empty_like(q)
     _build.launch("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGTYPES,
-                  q.device, q, k, v, out, b * h, s, t, dh, int(causal), 1.0 / math.sqrt(dh))
+                  q.device, q, k, v, out, b * h, b * hkv, s, t, dh, int(causal),
+                  1.0 / math.sqrt(dh))
     flash_attention.launches += 1
     return out
 

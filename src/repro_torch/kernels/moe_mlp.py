@@ -8,8 +8,8 @@ hidden ``h (E, C, F)`` is rounded to bf16 before the down product (what
 ``moe_ffn`` does); for float32 it stays float32.  Any capacity is taken.
 
 The kernels live in ``csrc/moe_mlp.cu`` (two launches: gate/up with the
-SwiGLU in its epilogue, then down; bf16 on the tensor cores through
-``mma.sync``, float32 on the CUDA cores) and are launched through ctypes on
+SwiGLU in its epilogue, then down; bf16 on the tensor cores through TMA and
+``wgmma``, float32 on the CUDA cores) and are launched through ctypes on
 PyTorch's current stream.  Given CUDA tensors the wrapper launches them or
 raises; given CPU tensors it runs the twin
 :func:`~repro_torch.kernels.ref.moe_mlp_ref`.  Each call adds one to the
@@ -36,9 +36,12 @@ def moe_mlp(x_packed, w_gate, w_up, w_down) -> torch.Tensor:
 
     Replaces ``src/repro/kernels/moe_mlp.py::moe_mlp`` (``_moe_mlp_kernel``,
     grid ``(expert, token tile)``).  Bound by the tensor cores at prefill
-    capacities and by reading every expert's weights at decode.  One CTA per
-    (expert, 64-row token tile, 64-column output tile) contracts in 32-wide
-    chunks through shared memory; every expert is computed, empty or not.
+    capacities and by reading the experts' weights at decode.  Above a
+    capacity of 64, one CTA per (expert, 128-row token tile, output tile)
+    streams 64-wide K-stages through a TMA ring into ``wgmma``; at 64 or less
+    the operands swap (weights as the 64-row operand, tokens as its N), and
+    a CTA whose expert's input rows are all zero writes +0 without reading
+    that expert's weights.
     """
     if x_packed.dim() != 3:
         raise ValueError("x_packed must be (E, C, D)")

@@ -23,11 +23,16 @@ def spmv_coo_ref(n_rows: int, rows, cols, vals, x) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Naive softmax attention over ``(B, H, S|T, Dh)``; the flash oracle.
+    """Naive softmax attention of ``q (B, H, S, Dh)`` over ``k, v (B, Hkv, T, Dh)``;
+    the flash oracle.
 
+    K and V are head-repeated here (q head h reads kv head h // (H // Hkv)).
     Scores in float32, a top-left causal mask ``i >= j``, ``p`` rounded to
     V's type before the float32 ``p v`` product, output in q's type.
     """
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) / math.sqrt(q.shape[-1])
     if causal:
         i = torch.arange(q.shape[2], device=q.device)[:, None]

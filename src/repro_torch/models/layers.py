@@ -1,12 +1,13 @@
 """Shared neural-net primitives of the serving path (port of ``repro.models.layers``).
 
 Conventions as in the reference: activations ``(B, S, D)``; attention in the
-flat-head layout ``(B, H, S, Dh)`` with GQA K/V repeated to H for the
-prefill kernel, and the cache in its native ``(B, T, Hkv, Dh)`` layout for
-decode; norms, RoPE and softmax in float32 whatever the activation type;
-weights in ``(d_in, d_out)`` layout (``x @ w``).  ``apply_mrope`` and the
-pure-JAX ``chunked_attention`` stay in the reference: prefill attention goes
-through :func:`repro_torch.kernels.flash_attention`.
+flat-head layout ``(B, H, S, Dh)`` (K/V ``(B, Hkv, S, Dh)``, not repeated:
+the prefill kernel reads kv head ``h // (H // Hkv)`` for q head ``h``), and
+the cache in its native ``(B, T, Hkv, Dh)`` layout for decode; norms, RoPE
+and softmax in float32 whatever the activation type; weights in
+``(d_in, d_out)`` layout (``x @ w``).  ``apply_mrope`` and the pure-JAX
+``chunked_attention`` stay in the reference: prefill attention goes through
+:func:`repro_torch.kernels.flash_attention`.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ __all__ = [
     "init_linear",
     "init_rms_norm",
     "make_rope_cache",
-    "repeat_kv",
     "rms_norm",
     "swiglu",
 ]
@@ -106,13 +106,6 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Attention helpers
 # ---------------------------------------------------------------------------
-
-
-def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """``(B, T, Hkv, Dh)`` -> contiguous ``(B, H, T, Dh)``; q head h reads kv head h // G."""
-    g = n_heads // k.shape[2]
-    k = k.transpose(1, 2)
-    return (k if g == 1 else k.repeat_interleave(g, dim=1)).contiguous()
 
 
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..kernels import moe_mlp
 from .layers import dot_f32, init_linear
 
-__all__ = ["expert_positions", "init_moe_params", "moe_ffn", "route",
+__all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "route",
            "router_load_balancing_loss"]
 
 
@@ -93,6 +93,26 @@ def expert_positions(ids_flat: torch.Tensor, n_experts: int) -> torch.Tensor:
     return torch.empty_like(ids_flat).scatter_(0, order, ranks)
 
 
+def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int):
+    """Capacity slabs of the routed pairs of tokens ``x (T, D)`` with expert
+    ids ``ids (T, k)``.
+
+    Returns ``(slab (E, C, D), rows (T * k,), keep (T * k,))``: the slab row of
+    each pair (token-major, k-minor) and whether it was kept.  A dropped
+    pair's row is the spare row ``E * C`` past the slabs; unfilled slab rows,
+    and so every row of an expert no pair chose, are zeros.
+    """
+    t, top_k = ids.shape
+    ids_flat = ids.reshape(t * top_k)
+    pos = expert_positions(ids_flat, n_experts)
+    keep = pos < capacity
+    rows = torch.where(keep, ids_flat * capacity + pos, n_experts * capacity)
+    pair_token = torch.arange(t * top_k, device=x.device) // top_k
+    slab = x.new_zeros((n_experts * capacity + 1, x.shape[1]))
+    slab[rows] = x[pair_token]
+    return slab[: n_experts * capacity].view(n_experts, capacity, x.shape[1]), rows, keep
+
+
 def moe_ffn(
     x: torch.Tensor,  # (T, D) flattened tokens
     params,
@@ -110,17 +130,7 @@ def moe_ffn(
     if expert_perm is not None:
         ids = expert_perm.to(ids.device)[ids]  # logical -> physical slot
 
-    # Slab row of each pair (token-major, k-minor); a dropped pair's row is
-    # the spare row E * C past the slabs.
-    ids_flat = ids.reshape(t * top_k)
-    pos = expert_positions(ids_flat, n_experts)
-    keep = pos < capacity
-    rows = torch.where(keep, ids_flat * capacity + pos, n_experts * capacity)
-    pair_token = torch.arange(t * top_k, device=x.device) // top_k
-
-    slab = x.new_zeros((n_experts * capacity + 1, d))
-    slab[rows] = x[pair_token]
-    slab = slab[: n_experts * capacity].view(n_experts, capacity, d)
+    slab, rows, keep = dispatch(x, ids, n_experts, capacity)
     out_slab = moe_mlp(slab, params["w_gate"], params["w_up"], params["w_down"])
 
     y_pairs = out_slab.view(n_experts * capacity, d)[rows.clamp(max=n_experts * capacity - 1)]

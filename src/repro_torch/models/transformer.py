@@ -5,7 +5,7 @@ is its own :class:`~repro_torch.models.params.Params` module in
 ``params.blocks`` and a Python loop walks them.  Only the ``dense`` and
 ``moe`` families are ported, without M-RoPE or modality front ends; the
 ``ssm``, ``hybrid`` and ``encdec`` families raise ``NotImplementedError``.
-Prefill attention runs the flash kernel on head-repeated K/V; decode
+Prefill attention runs the flash kernel on the un-repeated (GQA) K/V; decode
 attention is plain PyTorch over the cache, which ``forward_decode`` updates
 in place (the reference returns a new cache; the port saves the copy).
 """
@@ -21,7 +21,6 @@ from .layers import (
     init_embedding,
     init_linear,
     init_rms_norm,
-    repeat_kv,
     rms_norm,
     swiglu,
 )
@@ -183,7 +182,9 @@ def attn_block_prefill(p, cfg, h, positions):
     q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta).contiguous()
     k = _rope_k(cfg, k, positions)
-    out = flash_attention(q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads), causal=True)
+    # Un-repeated (B, Hkv, S, Dh) K/V: q head h reads kv head h // (H // Hkv).
+    out = flash_attention(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+                          causal=True)
     b, hq, s, dh = out.shape
     out = out.transpose(1, 2).reshape(b, s, hq * dh)
     return h + out @ p["wo"], k, v

@@ -86,3 +86,20 @@ def test_shape_mismatch_raises(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("hkv", [1, 2, 4])
+@pytest.mark.parametrize("s,t,causal", [(100, 100, True), (50, 70, True), (70, 50, False)])
+def test_gqa_equals_head_repeated_and_matches_jax(hkv, s, t, causal):
+    """Un-repeated K/V (B, Hkv, T, Dh), q head h reading kv head h // (H // Hkv):
+    bit for bit the twin on head-repeated K/V, and the JAX kernel's result on
+    those (it takes only head-repeated K/V)."""
+    h, g = 8, 8 // hkv
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((2, h, s, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, hkv, t, 32)).astype(np.float32) for _ in range(2))
+    kr, vr = np.repeat(k, g, axis=1), np.repeat(v, g, axis=1)  # head h <- kv head h // g
+    got = _port(q, k, v, causal)
+    assert torch.equal(got, _port(q, kr, vr, causal))
+    want = jax_flash_attention(jnp.asarray(q), jnp.asarray(kr), jnp.asarray(vr), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)

@@ -19,7 +19,7 @@ from repro_torch.core import (  # noqa: E402
     edge_partition,
     synthetic_bipartite_graph,
 )
-from repro_torch.kernels import flash_attention, launch_counts, moe_mlp  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, launch_counts, moe_mlp  # noqa: E402
 from repro_torch.kernels.ops import ep_spmv  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, moe_mlp_ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -126,6 +126,19 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def _assert_kernel_close(got, want):
+    """The reference's tolerance; a bf16 output is also held elementwise to
+    1e-2 |want| + 5e-2 of its row's RMS (chip_smoke.py's limit): late rows of
+    causal attention are ~sqrt(e / i) in size, well under 5e-2, and one bf16
+    ulp is at most 2^-7 of a value."""
+    tol = KERNEL_TOL[got.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if got.dtype == torch.bfloat16:
+        got, want = got.double(), want.double()
+        limit = 1e-2 * want.abs() + 5e-2 * want.square().mean(-1, keepdim=True).sqrt()
+        assert bool(((got - want).abs() <= limit).all())
+
+
 def _randn(shape, dtype, dev, seed, scale=1.0):
     a = np.random.default_rng(seed).standard_normal(shape) * scale
     return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
@@ -149,15 +162,7 @@ def test_flash_attention_matches_twin(cuda_device, no_tf32, dtype, b, h, s, t, d
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == before + 1
     want = flash_attention_ref(q, k, v, causal)
-    tol = KERNEL_TOL[dtype]
-    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
-    if dtype == torch.bfloat16:
-        # Late rows' outputs are ~sqrt(e / i) in size, well under 5e-2, so each
-        # element is also held to 1e-2 |want| + 5e-2 of its row's RMS
-        # (chip_smoke.py's limit; one bf16 ulp is at most 2^-7 of a value).
-        got, want = out.double(), want.double()
-        limit = 1e-2 * want.abs() + 5e-2 * want.square().mean(-1, keepdim=True).sqrt()
-        assert bool(((got - want).abs() <= limit).all())
+    _assert_kernel_close(out, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -165,6 +170,8 @@ def test_flash_attention_matches_twin(cuda_device, no_tf32, dtype, b, h, s, t, d
     (4, 128, 64, 128),
     (8, 100, 32, 64),    # capacity not a multiple of the 64-row tile
     (3, 8, 2048, 768),   # decode-sized capacity at qwen3-moe's widths
+    (2, 72, 256, 192),   # just above the small-capacity path, ragged tile
+    (5, 33, 128, 64),    # small-capacity path, 64 token columns
 ])
 def test_moe_mlp_matches_twin(cuda_device, no_tf32, dtype, e, c, d, f):
     x = _randn((e, c, d), dtype, cuda_device, 0)
@@ -175,9 +182,66 @@ def test_moe_mlp_matches_twin(cuda_device, no_tf32, dtype, e, c, d, f):
     out = moe_mlp(x, wg, wu, wd)
     torch.cuda.synchronize()
     assert launch_counts()["moe_mlp"] == before + 1
-    tol = KERNEL_TOL[dtype]
-    torch.testing.assert_close(out.float(), moe_mlp_ref(x, wg, wu, wd).float(),
-                               rtol=tol, atol=tol)
+    _assert_kernel_close(out, moe_mlp_ref(x, wg, wu, wd))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,t,d,causal", [
+    (2, 8, 1, 300, 300, 128, True),   # one kv head, ragged S = T
+    (1, 8, 2, 200, 333, 64, False),   # T != S, neither a multiple of 128
+    (2, 8, 4, 257, 190, 128, True),   # S > T
+    (1, 32, 4, 640, 640, 128, True),  # qwen3-moe's 32 / 4 heads
+])
+def test_flash_attention_gqa_matches_twin(cuda_device, b, h, hkv, s, t, d, causal):
+    """Un-repeated K/V (Hkv < H): q head h reads kv head h // (H // Hkv)."""
+    q = _randn((b, h, s, d), torch.bfloat16, cuda_device, 0)
+    k = _randn((b, hkv, t, d), torch.bfloat16, cuda_device, 1)
+    v = _randn((b, hkv, t, d), torch.bfloat16, cuda_device, 2)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    g = h // hkv
+    want = flash_attention_ref(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), causal)
+    _assert_kernel_close(out, want)
+    assert torch.equal(out, flash_attention(q, k.repeat_interleave(g, 1).contiguous(),
+                                            v.repeat_interleave(g, 1).contiguous(), causal))
+
+
+def _routed_slab(e, c, d, dev, seed):
+    """A capacity slab as moe_ffn fills it: expert i holds its first n_i rows,
+    the rest are zeros, and a third of the experts hold none."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, c + 1, e)
+    counts[rng.permutation(e)[: e // 3]] = 0
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    x[np.arange(c)[None, :] >= counts[:, None]] = 0.0
+    return torch.from_numpy(x).to(dev, torch.bfloat16), counts
+
+
+@pytest.mark.parametrize("e,c", [(16, 8), (16, 640), (12, 200), (24, 40)])
+def test_moe_mlp_routed_slab_matches_twin(cuda_device, e, c):
+    """qwen3-moe's widths (D 2048, F 768) on a routed slab with empty experts:
+    decode (C = 8) and prefill (C = 640) capacities, and capacities that are
+    not a multiple of 128 (or of 8).  Empty experts and unfilled rows are 0."""
+    d, f = 2048, 768
+    x, counts = _routed_slab(e, c, d, cuda_device, seed=c)
+    wg = _randn((e, d, f), torch.bfloat16, cuda_device, 1, d ** -0.5)
+    wu = _randn((e, d, f), torch.bfloat16, cuda_device, 2, d ** -0.5)
+    wd = _randn((e, f, d), torch.bfloat16, cuda_device, 3, f ** -0.5)
+    out = moe_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    _assert_kernel_close(out, moe_mlp_ref(x, wg, wu, wd))
+    filled = torch.arange(c, device=cuda_device)[None, :] < torch.from_numpy(counts).to(
+        cuda_device)[:, None]
+    assert bool((out[~filled] == 0).all())
+    if c <= 64:  # the small-capacity path writes +0 for an empty expert
+        assert not bool(torch.signbit(out[torch.from_numpy(counts == 0).to(cuda_device)]).any())
+
+
+def test_bf16_kernels_use_wgmma_and_tma(cuda_device):
+    """The redesigned kernels compile to Hopper's tensor-core (HGMMA) and TMA
+    (UTMALDG) instructions."""
+    for name in ("flash_attention", "moe_mlp"):
+        sass = _build.sass(name)
+        assert "HGMMA" in sass and "UTMALDG" in sass, name
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b"])

@@ -75,3 +75,19 @@ def test_weight_shape_mismatch_raises(which):
     bad[which] = bad[which][:, :-1]
     with pytest.raises(ValueError):
         moe_mlp(x, bad["w_gate"], bad["w_up"], bad["w_down"])
+
+
+def test_empty_experts_give_exact_zeros_and_match_jax_elsewhere():
+    # moe_ffn's slabs: an expert no token chose is all zeros, and its output
+    # is +0 exactly (the CUDA kernel writes it without reading the weights).
+    x, wg, wu, wd = _problem(6, 128, 64, 128, seed=3)
+    x[[1, 4]] = 0.0
+    x[2, 100:] = 0.0  # a partly filled expert
+    want = np.asarray(jax_moe_mlp(*(jnp.asarray(a) for a in (x, wg, wu, wd)), tm=128))
+    got = _port((x, wg, wu, wd))
+    for e in (1, 4):
+        assert torch.equal(got[e], torch.zeros_like(got[e]))
+        assert not bool(torch.signbit(got[e]).any())
+    assert torch.equal(got[2, 100:], torch.zeros_like(got[2, 100:]))
+    keep = [0, 2, 3, 5]
+    np.testing.assert_allclose(got.numpy()[keep], want[keep], rtol=2e-5, atol=2e-5)
