@@ -27,7 +27,9 @@ against a float64 COO product on the host (rtol = atol = 1e-5); a stacked
 batch must equal each batch of one bit for bit, and in
 software mode the bucketed lane must equal the dedicated lane bit for bit.
 Then each SpMV kernel is run at the main path's shapes, held against its
-plain PyTorch twin on the same card tensors, and timed with CUDA events over
+plain PyTorch twin on the same card tensors (and the two streaming kernels
+bit for bit against the twin run on the CPU, on host copies of the same
+tensors), and timed with CUDA events over
 back-to-back launches (and alone, from the profiler's trace) beside its
 bound (the bytes this run's data needs: valid tasks, the x entries they
 read, the y runs and the output, over the card's memory rate), its twin
@@ -58,8 +60,10 @@ qwen3-moe and granite on the card against the CPU (1e-4), and prefill +
 decode against teacher forcing at full width, 2 layers (2e-4).
 
 The build phase also counts the HGMMA (wgmma) and UTMALDG (TMA load)
-instructions in each kernel of the flash-attention and expert-FFN libraries
-(``cuobjdump -sass``) and fails if a bf16 kernel lacks either.
+instructions in each kernel of the flash-attention and expert-FFN libraries,
+and the 16-byte global loads (LDG.E...128) in each SpMV kernel
+(``cuobjdump -sass``), and fails if a bf16 kernel lacks either of the first
+two or the streaming SpMV kernel the third.
 
 Any failure raises, so the exit code is not 0.  Without a CUDA device, or
 without the repository beside it, the script prints no result and exits 1.
@@ -112,8 +116,16 @@ SYMBOLS = {"spmv_software_cache": ("smem_kernel",), "spmv_streaming": ("stream_k
            "spmv_streaming_batched": ("stream_kernel",), "ep_combine": ("combine_kernel",),
            "flash_attention": ("flash_bf16_kernel",),
            "moe_mlp": ("gemm_bf16_kernel", "gemm_swap_bf16_kernel")}
-# Hopper's tensor-core and TMA-load instructions, counted in the LM kernels' SASS.
-SASS_OPS = ("HGMMA", "UTMALDG")
+LIBRARIES = ("ep_spmv", "flash_attention", "moe_mlp")  # csrc/<name>.cu
+# The SASS instructions counted in every kernel (cuobjdump -sass), by name
+# and pattern: Hopper's tensor-core and TMA-load instructions, and 16-byte
+# global loads with any cache qualifier.  A kernel whose name holds a key of
+# SASS_NEEDS must contain each of its instructions: the bf16 LM kernels run
+# on wgmma and TMA, the streaming SpMV kernel streams its tasks 16 bytes a
+# load.
+SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
+            "LDG.128": r"\bLDG\.E\.(?:\w+\.)*128\b"}
+SASS_NEEDS = {"bf16": ("HGMMA", "UTMALDG"), "stream_kernel": ("LDG.128",)}
 
 
 def _emit(obj) -> None:
@@ -138,8 +150,8 @@ def sass_counts(name) -> dict:
         if m:
             fn = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
         elif fn is not None:
-            for op in SASS_OPS:
-                fn[op] += op in line
+            for op, pattern in SASS_OPS.items():
+                fn[op] += re.search(pattern, line) is not None
     return counts
 
 
@@ -470,6 +482,30 @@ def phase_kernels(plan, big, batched_plans, launches):
           {"batch": spec.batch, "k": spec.k, "e_max": spec.e_max, "y_max": spec.y_max,
            "n_cols": spec.n_cols, "valid_tasks": tasks3, "y_used": y_used3,
            "x_used": cols_used3})
+
+    # The streaming kernels keep the twin's bits: each y slot sums its run in
+    # task order with the same roundings, so the card's partials equal the
+    # twin's run on the CPU on host copies of the same tensors.
+    def cpu(*ts):
+        return [a.cpu() for a in ts]
+
+    streams = {
+        "spmv_streaming": (
+            K.spmv_streaming(vp, xg_task, yl, x, y_max, seg=seg),
+            K.streaming_plain(*cpu(vp, xg_task, yl, x), y_max, seg.cpu())),
+        "spmv_streaming_batched": (
+            K.spmv_streaming_batched(v3, xg3, yl3, x3, spec.y_max, seg=seg3),
+            K.streaming_batched_plain(*cpu(v3, xg3, yl3, x3), spec.y_max, seg3.cpu())),
+    }
+    for en in entries:
+        if en["name"] in streams:
+            got, want = streams[en["name"]]
+            got = got.cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{en['name']}: partials differ from the CPU twin's bits "
+                                     f"(max abs {(got - want).abs().max().item()})")
+            en["bits_equal_cpu_twin"] = True
+    del streams
 
     # The combine of the dedicated phase's partials: per table entry one
     # partial and its index (8 B), the row pointers and y (4 B each).
@@ -839,16 +875,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = [ln.strip() for name in ("ep_spmv", "flash_attention", "moe_mlp")
+    ptxas = [ln.strip() for name in LIBRARIES
              for ln in _build.ptxas_report(name).splitlines()
              if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    sass = {name: sass_counts(name) for name in LM_KERNELS}
+    sass = {name: sass_counts(name) for name in LIBRARIES}
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "sass": sass})
-    # The bf16 kernels run on wgmma and load through TMA.
-    lacking = [fn for name in LM_KERNELS for fn, n in sass[name].items()
-               if "bf16" in fn and not all(n.values())]
+    lacking = [(fn, op) for counts in sass.values() for fn, n in counts.items()
+               for key, ops in SASS_NEEDS.items() if key in fn for op in ops if not n[op]]
     if lacking:
-        raise AssertionError(f"bf16 kernels without {' or '.join(SASS_OPS)}: {lacking}")
+        raise AssertionError(f"kernels without the instructions of their design: {lacking}")
 
     rng = np.random.default_rng(0)
     reset_launch_counts()

@@ -11,7 +11,10 @@
 // kernel stages its cluster's packed x tile in shared memory once, so the
 // gathers x_tile[x_lidx] never leave the SM (the paper's __shared__ design).
 // The streaming kernel gathers from the whole x through the read-only path
-// (__ldg), leaving reuse to L1/L2 (the paper's texture-cache variant).
+// (__ldg), leaving reuse to L1/L2 (the paper's texture-cache variant).  It
+// works task-parallel: all lanes of a CTA stream consecutive tasks with
+// 16-byte loads and gather x with many loads in flight, stage the rounded
+// products in shared memory, and then each y slot sums its run from there.
 //
 // Determinism: no atomics.  Each output (a y slot of a tile, or a row of y)
 // is owned by one thread that sums its inputs in ascending input order,
@@ -23,6 +26,8 @@
 // Each entry point returns cudaGetLastError() after its launch (0 = ok).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -60,25 +65,151 @@ smem_kernel(const T* __restrict__ vals, const int* __restrict__ x_lidx,
   }
 }
 
-// One CTA per (request b = blockIdx.y, cluster p = blockIdx.x); row
-// r = b * k + p of the (B * k, e_max) task tiles gathers from x[b, :].
+// The streaming kernel.  One CTA per window of kWindow consecutive y slots
+// of one row r = b * k + p of the (B * k, e_max) task tiles (request b,
+// cluster p), gathering from x[b, :]; windows of a row are independent.
+// The window's tasks are one contiguous range seg[w0] .. seg[w1] (the tasks
+// of a row are packed in y order), streamed in chunks of kChunkVectors
+// 16-byte vectors a lane (2,048 f32 or 1,024 f64 task slots a CTA):
+//   A  every lane takes consecutive tasks: 16-byte loads of vals and xg_task
+//      (a scalar head and tail where a vector would cross the window's range,
+//      or where the row start is not 16-byte aligned), all of a lane's x
+//      gathers issued before any is used, and the rounded products written
+//      to shared memory.  The task stream is read once and loaded
+//      evict-first (__ldcs), so it does not push the x sectors that the
+//      window's gathers share out of L1 (on the dedicated plan, 811 32-byte
+//      sectors serve a tile's 4,067 gathers);
+//   B  each y slot of the window (thread t owns slots w0 + t + 256 i, i < 4)
+//      adds the products of its run that fall in the chunk, in slot order,
+//      to its running sum -- a run longer than a chunk carries its sum into
+//      the next chunk in order, never as a partial sum added later.
+// The next chunk's loads are issued before B, so they are in flight while
+// the sums run.  A window whose runs are all empty writes zeros without
+// reading its runs.  Chunks are aligned to the vector grid of the global
+// task index, so only a window's first and last vectors can be partial.
+// The window and chunk sizes are the fastest of the variants that
+// scripts/stream_variants.py times on the main path's plans.
+constexpr int kStreamThreads = 256;
+constexpr int kSlotsPerThread = 4;
+constexpr int kWindow = kStreamThreads * kSlotsPerThread;  // y slots per CTA
+constexpr int kChunkVectors = 2;  // 16-byte vectors of tasks a lane loads per chunk
+
+template <typename T> struct Wide;  // the 16-byte vector of T and its index vector
+template <> struct Wide<float> { using V = float4; using I = int4; static constexpr int kN = 4; };
+template <> struct Wide<double> { using V = double2; using I = int2; static constexpr int kN = 2; };
+
+__device__ __forceinline__ void unpack(const float4& a, float* d) { d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w; }
+__device__ __forceinline__ void unpack(const double2& a, double* d) { d[0] = a.x; d[1] = a.y; }
+__device__ __forceinline__ void unpack(const int4& a, int* d) { d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w; }
+__device__ __forceinline__ void unpack(const int2& a, int* d) { d[0] = a.x; d[1] = a.y; }
+__device__ __forceinline__ float4 pack(const float* s) { return make_float4(s[0], s[1], s[2], s[3]); }
+__device__ __forceinline__ double2 pack(const double* s) { return make_double2(s[0], s[1]); }
+
+// Loads the tasks of the chunk that starts at row slot q into (v, xi):
+// lane slot u * kN + i holds task q + (u * kStreamThreads + tid) * kN + i,
+// or 0 where that task is outside [a, e).
+template <typename T, int U>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ vals, const int* __restrict__ xg,
+                                           int q, int a, int e, bool wide, T (&v)[U][Wide<T>::kN],
+                                           int (&xi)[U][Wide<T>::kN]) {
+  using V = typename Wide<T>::V;
+  using I = typename Wide<T>::I;
+  constexpr int N = Wide<T>::kN;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int t0 = q + (u * kStreamThreads + static_cast<int>(threadIdx.x)) * N;
+    if (wide && t0 >= a && t0 + N <= e) {
+      unpack(__ldcs(reinterpret_cast<const V*>(vals + t0)), v[u]);
+      unpack(__ldcs(reinterpret_cast<const I*>(xg + t0)), xi[u]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int t = t0 + i;
+        v[u][i] = T(0);
+        xi[u][i] = 0;
+        if (t >= a && t < e) {
+          v[u][i] = __ldcs(vals + t);
+          xi[u][i] = __ldcs(xg + t);
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kStreamThreads)
 stream_kernel(const T* __restrict__ vals, const int* __restrict__ xg_task,
               const int* __restrict__ seg, const T* __restrict__ x,
-              T* __restrict__ out, int k, int e_max, int n_cols, int y_max) {
-  const long long b = blockIdx.y;
-  const long long r = b * k + blockIdx.x;
-  const T* xb = x + b * n_cols;
-  const T* v = vals + r * e_max;
-  const int* xg = xg_task + r * e_max;
+              T* __restrict__ out, int k, int e_max, int n_cols, int y_max, int n_windows) {
+  using V = typename Wide<T>::V;
+  using I = typename Wide<T>::I;
+  constexpr int N = Wide<T>::kN;
+  constexpr int U = kChunkVectors;
+  constexpr int kChunk = U * N * kStreamThreads;  // task slots staged at once
+  __shared__ __align__(16) T prod[kChunk];  // the chunk's rounded products
+
+  const long long r = blockIdx.x / n_windows;
+  const int w0 = static_cast<int>(blockIdx.x % n_windows) * kWindow;
+  const int w1 = min(w0 + kWindow, y_max);
   const int* sg = seg + r * (y_max + 1);
+  const int a = __ldg(sg + w0), e = __ldg(sg + w1);  // the window's tasks: [a, e)
+
+  int lo[kSlotsPerThread], hi[kSlotsPerThread];
+  T acc[kSlotsPerThread];
+#pragma unroll
+  for (int s = 0; s < kSlotsPerThread; ++s) {
+    const int j = w0 + s * kStreamThreads + static_cast<int>(threadIdx.x);
+    const bool in = a < e && j < w1;
+    lo[s] = in ? __ldg(sg + j) : 0;
+    hi[s] = in ? __ldg(sg + j + 1) : 0;
+    acc[s] = T(0);
+  }
+  if (a < e) {
+    const long long base = r * e_max;  // global index of the row's first task slot
+    const T* v = vals + base;
+    const int* xg = xg_task + base;
+    const T* xb = x + (r / k) * n_cols;
+    const bool wide = reinterpret_cast<uintptr_t>(vals) % sizeof(V) == 0 &&
+                      reinterpret_cast<uintptr_t>(xg_task) % sizeof(I) == 0;
+    const int q0 = a - static_cast<int>((base + a) % N);  // the vector grid at or below a
+    const int n_chunks = (e - q0 + kChunk - 1) / kChunk;
+    T tv[U][N];
+    int ti[U][N];
+    load_chunk<T, U>(v, xg, q0, a, e, wide, tv, ti);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int q = q0 + c * kChunk;
+      T xv[U][N];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t0 = q + (u * kStreamThreads + static_cast<int>(threadIdx.x)) * N;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int t = t0 + i;
+          xv[u][i] = (t >= a && t < e) ? __ldg(xb + ti[u][i]) : T(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        T p[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) p[i] = mul_rn(tv[u][i], xv[u][i]);
+        *reinterpret_cast<V*>(prod + (u * kStreamThreads + threadIdx.x) * N) = pack(p);
+      }
+      __syncthreads();
+      if (c + 1 < n_chunks) load_chunk<T, U>(v, xg, q + kChunk, a, e, wide, tv, ti);
+#pragma unroll
+      for (int s = 0; s < kSlotsPerThread; ++s) {
+        const int end = min(hi[s], q + kChunk);
+        for (int t = max(lo[s], q); t < end; ++t) acc[s] = add_rn(acc[s], prod[t - q]);
+      }
+      __syncthreads();
+    }
+  }
   T* o = out + r * y_max;
-  for (int j = threadIdx.x; j < y_max; j += blockDim.x) {
-    T acc = T(0);
-    const int end = sg[j + 1];
-    for (int t = sg[j]; t < end; ++t) acc = add_rn(acc, mul_rn(v[t], __ldg(xb + xg[t])));
-    o[j] = acc;
+#pragma unroll
+  for (int s = 0; s < kSlotsPerThread; ++s) {
+    const int j = w0 + s * kStreamThreads + static_cast<int>(threadIdx.x);
+    if (j < w1) o[j] = acc[s];
   }
 }
 
@@ -121,11 +252,13 @@ int launch_stream(const void* vals, const void* xg_task, const void* seg,
                   const void* x, void* out, int batch, int k, int e_max, int n_cols,
                   int y_max, void* stream) {
   if (batch > 0 && k > 0 && y_max > 0) {
-    const dim3 grid(static_cast<unsigned>(k), static_cast<unsigned>(batch));
-    stream_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int n_windows = (y_max + kWindow - 1) / kWindow;
+    const long long blocks = static_cast<long long>(batch) * k * n_windows;
+    stream_kernel<T><<<static_cast<unsigned>(blocks), kStreamThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(vals), static_cast<const int*>(xg_task),
         static_cast<const int*>(seg), static_cast<const T*>(x), static_cast<T*>(out),
-        k, e_max, n_cols, y_max);
+        k, e_max, n_cols, y_max, n_windows);
   }
   return static_cast<int>(cudaGetLastError());
 }

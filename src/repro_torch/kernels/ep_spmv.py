@@ -283,7 +283,11 @@ def spmv_streaming(vals, x_gidx_task, y_lidx, x, y_max: int, *, seg=None):
     (``_stream_kernel``, grid ``(k,)``).  Bound by device-memory bytes: 12
     bytes per f32 task plus the runs, x and the y tiles; the x gathers are
     irregular, so they go through the read-only path (``__ldg``) and rely on
-    L1/L2 for reuse.  Same kernel body as the batched variant with B = 1.
+    L1/L2 for reuse.  One CTA per 1,024 y slots of a tile streams the
+    window's tasks with 16-byte loads, all lanes on consecutive tasks, and
+    stages the rounded products in shared memory; each slot then sums its
+    run from there in task order, so the bits are the twin's.  Same kernel
+    body as the batched variant with B = 1.
     """
     if (vals.dim() != 2 or x_gidx_task.shape != vals.shape or y_lidx.shape != vals.shape
             or x.dim() != 1):

@@ -29,6 +29,7 @@ from repro_torch.kernels.ops import (  # noqa: E402
     stack_combine_tables,
 )
 from repro_torch.kernels.ref import spmv_coo_ref  # noqa: E402
+from test_torch_gpu import STREAM_EDGES, synthetic_tiles  # noqa: E402
 
 # The module, not the ``kernels.ep_spmv`` function that shadows its name.
 K = importlib.import_module("repro_torch.kernels.ep_spmv")
@@ -36,11 +37,11 @@ GRID = [(64, 64, 4, 4), (128, 96, 3, 8), (33, 47, 5, 3)]
 TOL = {np.float32: 1e-5, np.float64: 1e-4}  # the reference's own tolerances
 
 
-def _problem(n_rows, n_cols, nnz_per_row, k, seed=0, dtype=np.float32):
+def _problem(n_rows, n_cols, nnz_per_row, k, seed=0, dtype=np.float32, pad=8):
     """Reference-built plan, the port's copy of it, and seeded values and x."""
     edges, rows, cols = synthetic_bipartite_graph(n_rows, n_cols, nnz_per_row, seed=seed)
     res = edge_partition(edges, k, method="ep", seed=seed)
-    ref_plan = build_pack_plan(n_rows, n_cols, rows, cols, res.labels, k, pad=8)
+    ref_plan = build_pack_plan(n_rows, n_cols, rows, cols, res.labels, k, pad=pad)
     rng = np.random.default_rng(seed)
     vals = rng.standard_normal(rows.shape[0]).astype(dtype)
     x = rng.standard_normal(n_cols).astype(dtype)
@@ -90,6 +91,46 @@ class TestPartialsMatchPallas:
         assert got.shape == (b, plan.k, plan.y_max)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
         assert torch.equal(got[1], torch.zeros_like(got[1]))  # exactly 0
+
+
+class TestStreamingEdgesMatchPallas:
+    """The streaming twins on the shapes that the card tests put to the
+    redesigned kernel (tests/test_torch_gpu.py), against the Pallas kernels."""
+
+    @pytest.mark.parametrize("case", ["hub_run_over_chunk", "e_max_4225_y_max_513",
+                                      "empty_tiles_zero_slot"])
+    def test_synthetic_tiles(self, case):
+        b, k, e_max, y_max, n_cols, counts, occupied, hub = STREAM_EDGES[case]
+        v, xg, yl, x, seg = synthetic_tiles(b, k, e_max, y_max, n_cols, counts, occupied,
+                                            np.float32, seed=len(case), hub=hub)
+        j = [jnp.asarray(a.numpy()) for a in (v, xg, yl, x)]
+        want = jax_streaming_batched(*j, y_max, interpret=True)
+        got = K.spmv_streaming_batched(v, xg, yl, x, y_max, seg=seg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        for i in range(b):
+            want = jax_streaming(*(a[i] for a in j), y_max, interpret=True)
+            got = K.spmv_streaming(v[i], xg[i], yl[i], x[i], y_max, seg=seg[i])
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("pad", [1, 3])
+    def test_odd_pad_plans(self, pad):
+        plan, ref_plan, _, _, vals, x = _problem(301, 257, 7, 5, seed=pad, pad=pad)
+        assert plan.e_max % 4 != 0  # rows start off the 16-byte grid on the card
+        vp = plan.pack_values(vals)
+        xg = np.take_along_axis(plan.x_gidx, plan.x_lidx, axis=1)
+        want = jax_streaming(jnp.asarray(vp), jnp.asarray(xg), jnp.asarray(plan.y_lidx),
+                             jnp.asarray(x), plan.y_max, interpret=True)
+        got = K.spmv_streaming(_t(vp), _t(xg), _t(plan.y_lidx), _t(x), plan.y_max)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        xb = np.stack([x, -2 * x])
+        stacked = [np.stack([a, a]) for a in (vp, xg, plan.y_lidx)]
+        want = jax_streaming_batched(*map(jnp.asarray, stacked), jnp.asarray(xb), plan.y_max,
+                                     interpret=True)
+        got = K.spmv_streaming_batched(*map(_t, stacked), _t(xb), plan.y_max)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        y = ep_spmv(x, plan, vals, mode="streaming", device="cpu")
+        np.testing.assert_allclose(y.numpy(), np.asarray(jax_ep_spmv(
+            jnp.asarray(x), ref_plan, vals, mode="streaming")), rtol=1e-5, atol=1e-5)
 
 
 class TestEpSpmvMatchesReference:

@@ -6,6 +6,7 @@ no JAX, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import importlib
+import re
 
 import numpy as np
 import pytest
@@ -37,10 +38,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _problem(n_rows, n_cols, nnz_per_row, k, seed=0):
+def _problem(n_rows, n_cols, nnz_per_row, k, seed=0, pad=8):
     edges, rows, cols = synthetic_bipartite_graph(n_rows, n_cols, nnz_per_row, seed=seed)
     res = edge_partition(edges, k, method="ep", seed=seed)
-    plan = build_pack_plan(n_rows, n_cols, rows, cols, res.labels, k, pad=8)
+    plan = build_pack_plan(n_rows, n_cols, rows, cols, res.labels, k, pad=pad)
     rng = np.random.default_rng(seed)
     vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
     x = rng.standard_normal(n_cols).astype(np.float32)
@@ -85,8 +86,13 @@ def test_kernels_match_twins(cuda_device, dtype):
 
 
 @pytest.mark.parametrize("mode", ["software", "streaming"])
-def test_card_bits_equal_cpu_twin(cuda_device, mode):
-    plan, vals, x = _problem(64, 64, 4, 4)
+@pytest.mark.parametrize("shape,pad,seed", [((64, 64, 4, 4), 8, 0), ((301, 257, 7, 5), 1, 1),
+                                            ((301, 257, 7, 5), 3, 3)])
+def test_card_bits_equal_cpu_twin(cuda_device, mode, shape, pad, seed):
+    """pad 1 and 3 give an e_max that is not a multiple of 4: rows whose
+    start is off the 16-byte grid."""
+    plan, vals, x = _problem(*shape, seed=seed, pad=pad)
+    assert pad == 8 or plan.e_max % 4 != 0
     y = ep_spmv(x, plan, vals, mode=mode, device=cuda_device)
     # Same products and sums, in the same order, on either device.
     assert torch.equal(y.cpu(), ep_spmv(x, plan, vals, mode=mode, device="cpu"))
@@ -107,6 +113,99 @@ def test_server_byte_identity_on_card(cuda_device, mode):
         assert res.info.batch_size == 3
         assert torch.equal(res.y.cpu(), y1)  # stacked batch == batch of one
         assert torch.equal(y_own, y1)  # bucketed == dedicated
+
+
+def synthetic_tiles(b, k, e_max, y_max, n_cols, counts, occupied, dtype, seed, hub=0):
+    """Streaming operands packed as ``build_pack_plan`` packs them, without a
+    partition: row r = b * k + p holds ``counts[r]`` tasks first, sorted by y
+    slot, on ``occupied[r]`` distinct slots (each slot at least one task),
+    then zero padding (y slot 0, x index 0); with ``hub``, ``hub`` of row 0's
+    tasks fall on one slot.  Returns CPU tensors ``vals, xg_task, y_lidx
+    (B, k, E)``, ``x (B, n_cols)`` and the runs ``seg (B, k, y_max + 1)``."""
+    rng = np.random.default_rng(seed)
+    rows = b * k
+    vals = np.zeros((rows, e_max), dtype)
+    xg, yl = np.zeros((rows, e_max), np.int32), np.zeros((rows, e_max), np.int32)
+    valid = np.zeros((rows, e_max), bool)
+    for r, (n, m) in enumerate(zip(counts, occupied)):
+        if n == 0:
+            continue
+        slots = np.concatenate([np.arange(m), rng.integers(0, m, n - m)])
+        if r == 0 and hub:
+            slots[m:m + hub] = m // 2
+        yl[r, :n] = np.sort(np.sort(rng.choice(y_max, m, replace=False))[slots])
+        vals[r, :n] = rng.standard_normal(n)
+        xg[r, :n] = rng.integers(0, n_cols, n)
+        valid[r, :n] = True
+    x = rng.standard_normal((b, n_cols)).astype(dtype)
+    seg = K.tile_order(torch.from_numpy(yl), y_max, torch.from_numpy(valid))
+    shape = (b, k, e_max)
+    return (torch.from_numpy(vals).view(shape), torch.from_numpy(xg).view(shape),
+            torch.from_numpy(yl).view(shape), torch.from_numpy(x), seg.view(b, k, y_max + 1))
+
+
+# (B, k, e_max, y_max, n_cols, tasks per row, occupied slots per row, hub): the
+# streaming kernel stages 2,048 f32 (1,024 f64) task slots at a time, one CTA
+# per 1,024 y slots of a row, with 16-byte loads of rows whose start may not
+# lie on the 16-byte grid (e_max odd).
+STREAM_EDGES = {
+    "hub_run_over_chunk": (1, 3, 6001, 700, 300, [5600, 40, 0], [300, 20, 0], 5000),
+    "tile_over_buffer": (1, 2, 6400, 1100, 500, [6400, 3000], [1000, 900], 0),
+    "e_max_4227": (2, 3, 4227, 1300, 1000, [4227, 4000, 1, 0, 4226, 17],
+                   [1300, 1200, 1, 0, 5, 17], 0),
+    "e_max_4225_y_max_513": (1, 4, 4225, 513, 800, [4225, 4224, 4223, 3], [513, 512, 500, 1], 0),
+    "empty_tiles_zero_slot": (3, 2, 130, 70, 50, [100, 0, 0, 0, 129, 130], [60, 0, 0, 0, 70, 1],
+                              0),
+    "batched_occupancy": (2, 4, 5376, 5376, 16384, [4012] * 8, [648] * 8, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(STREAM_EDGES))
+def test_streaming_bits_equal_twin_on_edges(cuda_device, dtype, case):
+    """Both streaming wrappers on the card give the CPU twin's bits on the
+    redesigned kernel's edges: a run longer than a staged chunk, a window with
+    more tasks than the product buffer, rows off the 16-byte grid, a y_max
+    that is not a multiple of the window, empty tiles, an all-zero batch slot
+    and f64.  The B = 1 wrapper runs each batch slot alone, with its runs and
+    without (it then sorts the tasks itself)."""
+    b, k, e_max, y_max, n_cols, counts, occupied, hub = STREAM_EDGES[case]
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    v, xg, yl, x, seg = synthetic_tiles(b, k, e_max, y_max, n_cols, counts, occupied, np_dtype,
+                                        seed=len(case), hub=hub)
+    if case == "empty_tiles_zero_slot":
+        v[1], x[1] = 0, 0
+    want = K.streaming_batched_plain(v, xg, yl, x, y_max, seg)
+    dev = cuda_device
+    before = K.launch_counts()
+    got = K.spmv_streaming_batched(v.to(dev), xg.to(dev), yl.to(dev), x.to(dev), y_max,
+                                   seg=seg.to(dev))
+    assert torch.equal(got.cpu(), want)
+    for i in range(b):
+        ops = v[i].to(dev), xg[i].to(dev), yl[i].to(dev), x[i].to(dev), y_max
+        assert torch.equal(K.spmv_streaming(*ops, seg=seg[i].to(dev)).cpu(), want[i])
+        assert torch.equal(K.spmv_streaming(*ops).cpu(),
+                           K.streaming_plain(v[i], xg[i], yl[i], x[i], y_max))
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["spmv_streaming_batched"] == before["spmv_streaming_batched"] + 1
+    assert after["spmv_streaming"] == before["spmv_streaming"] + 2 * b
+    if case == "empty_tiles_zero_slot":
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+def test_stream_kernel_uses_16_byte_loads(cuda_device):
+    """The streaming kernel streams its tasks with 16-byte loads
+    (LDG.E[.qualifiers].128) in both types."""
+    fn, found = None, {}
+    for line in _build.sass("ep_spmv").splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            found[fn] = False
+        elif fn is not None and re.search(r"\bLDG\.E\.(?:\w+\.)*128\b", line):
+            found[fn] = True
+    stream = [fn for fn in found if "stream_kernel" in fn]
+    assert len(stream) == 2 and all(found[fn] for fn in stream), found
 
 
 # ---------------------------------------------------------------------------
