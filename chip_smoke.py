@@ -8,7 +8,7 @@ per source, all at once), then drives the port's two main paths through the
 entry points a user calls, each with the kernels' launch counts set to 0
 just before it and read just after.
 
-The EP-SpMV path, in three phases:
+The EP-SpMV path, in six phases:
 
   dedicated      GraphServer(PartitionService(), k=1024, pad=128) on a
                  262,144 x 262,144 matrix with 16 nnz per row (4.2M nnz, the
@@ -19,11 +19,27 @@ The EP-SpMV path, in three phases:
                  a 1% churn repartitioned behind a double buffer, and a
                  post-swap dedicated launch;
   batched        8 distinct 16,384 x 16,384 x 16 matrices, k=64, submitted
-                 concurrently through the micro-batcher in each mode.
+                 concurrently through the micro-batcher in each mode;
+  multitenant    run_multitenant_graph_serving at 16,384 x 16,384 x 16, k=64:
+                 3 tenants, 4 rounds, 2 partition workers; tenant0 floods a
+                 new matrix each round against a per-tenant cache budget of
+                 1.5x the largest victim plan, and the victims must stay warm;
+  replicated     run_replicated_graph_serving at the same size in streaming
+                 mode: 2 replica worker processes behind the TCP transport,
+                 6 matrices cycled over 12 requests, one worker SIGKILLed
+                 after request 4; the two cold requests after the kill must
+                 be re-dispatched away from the dead worker; nothing lost,
+                 nothing stale;
+  overload       run_overload_graph_serving at the same size: queue bound 4,
+                 6 flooding clients x 4 cold matrices against a warm victim;
+                 the victim stays warm and undegraded, and every flooder
+                 request is admitted, rejected or browned out.
 
-Every y served in the dedicated and batched phases, and in graph_serving
-a warm y, a y served during the repartition and the post-swap y, is held
-against a float64 COO product on the host (rtol = atol = 1e-5); a stacked
+Every y served in the dedicated, batched and the last three phases, and in
+graph_serving a warm y, a y served during the repartition and the post-swap
+y, is held against a float64 COO product on the host (rtol = atol = 1e-5);
+each of the last three phases counts its own launches and fails unless its
+lane's kernels ran (``PATH_KERNELS``); a stacked
 batch must equal each batch of one bit for bit, and in
 software mode the bucketed lane must equal the dedicated lane bit for bit.
 Then each SpMV kernel is run at the main path's shapes, held against its
@@ -103,12 +119,32 @@ TF_TOL = 2e-4
 DEDICATED = (262_144, 1024)
 SERVING = (65_536, 256)
 BATCHED = (16_384, 64, 8)
+# The multitenant, replicated and overload phases: the batched phase's scale.
+SLICE_MATRIX = {"n_rows": 16_384, "n_cols": 16_384, "nnz_per_row": 16, "k": 64, "pad": 128}
+# A busy replica beats only when a job completes, and a cold partition at
+# this scale takes 1.2-1.4 s in a worker on the H100 host (2.5 s on a slow
+# CPU): the drivers' defaults (1 s and 2 s, sized for 256 x 256 matrices)
+# would mark a replica suspect mid-job, and with no replica healthy the
+# group serves a stale plan of the same shape.  The deadline stays short
+# enough that a SIGKILLed worker goes suspect within the phase.
+HEARTBEAT_DEADLINE_S = 5.0
+MULTITENANT = {"tenants": 3, "rounds": 4, "workers": 2}
+# Six matrices, so requests 4 and 5 are cold and come after the kill.
+REPLICATED = {"replicas": 2, "transport": "process", "mode": "streaming", "matrices": 6,
+              "requests": 12, "kill_after": 4, "heartbeat_deadline_s": HEARTBEAT_DEADLINE_S}
+OVERLOAD = {"queue_bound": 4, "flood_clients": 6, "flood_requests_each": 4,
+            "victim_rounds": 10, "stall_s": 0.03, "heartbeat_deadline_s": HEARTBEAT_DEADLINE_S}
 # LM serving: qwen3-moe-30b-a3b at its published widths, 8 of its 48 layers;
 # (batch, prompt tokens, generated tokens).
 LM_ARCH, LM_LAYERS = "qwen3-moe-30b-a3b", 8
 LM_TRAFFIC = (4, 2048, 32)
 DEVICE = "cuda"
 SPMV_KERNELS = ("spmv_software_cache", "spmv_streaming", "spmv_streaming_batched", "ep_combine")
+# The kernels each serving phase after ``batched`` must launch: the bucketed
+# lane in its mode, then the combine.
+PATH_KERNELS = {"multitenant": ("spmv_software_cache", "ep_combine"),
+                "replicated": ("spmv_streaming_batched", "ep_combine"),
+                "overload": ("spmv_software_cache", "ep_combine")}
 LM_KERNELS = ("flash_attention", "moe_mlp")
 # The CUDA kernels each wrapper launches (bf16 for the LM ones), as the
 # profiler names them.
@@ -289,6 +325,103 @@ def phase_batched(svc):
                      "stacked_equals_batch_of_1": True, "bucket": spec}
     _emit(out)
     return plans
+
+
+def _check_samples(samples, n, what) -> int:
+    """Hold every sample that is not stale against the COO product; returns
+    how many were checked."""
+    checked = 0
+    for i, smp in enumerate(samples):
+        if smp["stale"]:
+            continue
+        _check_y(smp["y"], n, smp["rows"], smp["cols"], smp["vals"], smp["x"], f"{what} {i}")
+        checked += 1
+    return checked
+
+
+def phase_multitenant():
+    """Tenants competing for the plan cache; victims must stay warm."""
+    from repro_torch.core import PartitionService, affinity_graph_from_coo
+    from repro_torch.launch.serve import run_multitenant_graph_serving
+
+    m, n = SLICE_MATRIX, SLICE_MATRIX["n_rows"]
+    t0 = time.perf_counter()
+    # The budget: 1.5x the largest victim plan's bytes as the plan cache
+    # counts them (victim t serves seed 100 + t's matrix in the driver).
+    with PartitionService(workers=2) as svc:
+        tickets = []
+        for t in range(1, MULTITENANT["tenants"]):
+            rows, cols, _ = _matrix(n, n, m["nnz_per_row"], seed=100 + t)
+            tickets.append(svc.submit(affinity_graph_from_coo(n, n, rows, cols), m["k"],
+                                      pad=m["pad"], coo=(n, n, rows, cols)))
+        victim_bytes = [tk.result(600).nbytes() for tk in tickets]
+    budget_mb = 1.5 * max(victim_bytes) / 1e6
+    t_budget = time.perf_counter() - t0
+    report = run_multitenant_graph_serving(**MULTITENANT, **m, cache_budget_mb=budget_mb,
+                                           keep_samples=True)
+    samples = report.pop("samples")
+    checked = sum(_check_samples(s, n, f"multitenant {name} request")
+                  for name, s in samples.items())
+    victims = {name: row for name, row in report["tenants"].items() if name != "tenant0"}
+    for name, row in victims.items():
+        if row["warm_hit_rate_after_round1"] != 1.0 or row["evictions"]:
+            raise AssertionError(f"multitenant: victim {name} lost its warm plan: {row}")
+    metrics = report.pop("metrics")
+    return {"phase": "multitenant", **MULTITENANT, **m, "victim_plan_bytes": victim_bytes,
+            "cache_budget_mb": budget_mb, "budget_s": t_budget, "y_checked": checked,
+            "median_warm_ms": {name: row["median_warm_ms"]
+                               for name, row in report["tenants"].items()},
+            "tenant_cache": metrics["tenants"], **report,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_replicated():
+    """Two replica worker processes, one SIGKILLed mid-stream."""
+    from repro_torch.launch.serve import run_replicated_graph_serving
+
+    m, n = SLICE_MATRIX, SLICE_MATRIX["n_rows"]
+    t0 = time.perf_counter()
+    report = run_replicated_graph_serving(**REPLICATED, **m, keep_samples=True)
+    samples = report.pop("samples")
+    checked = _check_samples(samples, n, "replicated request")
+    if len(report["per_request"]) != REPLICATED["requests"] or checked != len(samples):
+        raise AssertionError(f"replicated: {len(report['per_request'])} served, "
+                             f"{checked} fresh of {REPLICATED['requests']}")
+    if report["lost_tickets"] or report["stale_serves"] or report["killed_replica"] is None:
+        raise AssertionError(f"replicated: lost {report['lost_tickets']}, stale "
+                             f"{report['stale_serves']}, killed {report['killed_replica']}")
+    # The group must have seen the kill: a cold request re-dispatched away
+    # from the dead worker, or the worker drained from routing.
+    killed = next(r for r in report["replica_table"] if r["replica"] == report["killed_replica"])
+    if report["retries"] + report["failovers"] == 0 and killed["state"] == "healthy":
+        raise AssertionError(f"replicated: the group never saw the kill of {killed}")
+    return {"phase": "replicated", **m, "y_checked": checked, **report,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_overload():
+    """A flooding tenant against bounded admission and the brownout ladder."""
+    from repro_torch.launch.serve import run_overload_graph_serving
+
+    m, n = SLICE_MATRIX, SLICE_MATRIX["n_rows"]
+    t0 = time.perf_counter()
+    report = run_overload_graph_serving(**OVERLOAD, **m, keep_samples=True)
+    samples = report.pop("samples")
+    flood = OVERLOAD["flood_clients"] * OVERLOAD["flood_requests_each"]
+    answered = (report["flooder_admitted"] + report["flooder_rejections"]
+                + report["flooder_brownout_rejects"])
+    if answered != flood or len(samples["flooder"]) != report["flooder_admitted"]:
+        raise AssertionError(f"overload: {answered} of {flood} flooder requests answered")
+    victim = samples["victim"]
+    if len(victim) != OVERLOAD["victim_rounds"] or not all(
+            s["cache_hit"] and not s["degraded"] for s in victim):
+        raise AssertionError(f"overload: {len(victim)} victim serves, not all warm and whole")
+    checked = {who: _check_samples(s, n, f"overload {who} request")
+               for who, s in samples.items()}
+    if checked["flooder"] != report["flooder_admitted"]:
+        raise AssertionError("overload: an admitted flooder request was served stale")
+    return {"phase": "overload", **OVERLOAD, **m, "y_checked": checked, **report,
+            "seconds": time.perf_counter() - t0}
 
 
 def phase_profile(svc, big, small):
@@ -895,11 +1028,27 @@ def main() -> int:
         missing = [name for name in SPMV_KERNELS if launches[name] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the SpMV path: {missing}")
+        by_path = {"spmv": launches}
+        for path, phase in (("multitenant", phase_multitenant),
+                            ("replicated", phase_replicated), ("overload", phase_overload)):
+            reset_launch_counts()
+            out = phase()
+            by_path[path] = launch_counts()
+            _emit({**out, "launches": by_path[path]})
+            missing = [name for name in PATH_KERNELS[path] if by_path[path][name] == 0]
+            if missing:
+                raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+        launches = {name: sum(c[name] for c in by_path.values()) for name in launches}
         entries = phase_kernels(plan, big, batched_plans, launches)
+        for en in entries:
+            en["launches_by_path"] = {path: c[en["name"]] for path, c in by_path.items()}
         phase_profile(svc, big, batched_plans[0][1])
 
     cfg, state, launches = phase_lm_serving()
-    entries += phase_lm_kernels(cfg, state, launches)
+    lm_entries = phase_lm_kernels(cfg, state, launches)
+    for en in lm_entries:
+        en["launches_by_path"] = {"lm_serving": en["launches"]}
+    entries += lm_entries
     phase_lm_profile(cfg, state)
     del state
     torch.cuda.empty_cache()

@@ -1,25 +1,40 @@
-"""Request layer of the port: typed EP-SpMV requests and LM serving steps on the device."""
-from .request import (
-    BucketKey,
-    BucketPolicy,
-    CompileCache,
-    GraphRequest,
-    GraphServer,
-    ServeInfo,
-    ServeResult,
-    resolve_plan,
-)
-from .serve import make_decode_step, make_prefill_step
+"""Request layer of the port: typed EP-SpMV requests, LM serving steps, and
+the fault-tolerance pieces replicated serving stands on.
 
-__all__ = [
-    "BucketKey",
-    "BucketPolicy",
-    "CompileCache",
-    "GraphRequest",
-    "GraphServer",
-    "ServeInfo",
-    "ServeResult",
-    "make_decode_step",
-    "make_prefill_step",
-    "resolve_plan",
-]
+``fault`` is imported eagerly (standard library only); the request and
+serving names load their modules on first use (PEP 562), so that
+``core/replica.py``'s ``from ..runtime.fault import ...`` does not pull in
+torch and the kernels: a replica worker process imports ``repro_torch.core``
+and must create no CUDA context.
+"""
+from .fault import CircuitBreaker, HeartbeatRegistry, OverloadSchedule, StragglerMonitor
+
+_LAZY = {
+    "BucketKey": "request",
+    "BucketPolicy": "request",
+    "CompileCache": "request",
+    "GraphRequest": "request",
+    "GraphServer": "request",
+    "ServeInfo": "request",
+    "ServeResult": "request",
+    "resolve_plan": "request",
+    "make_decode_step": "serve",
+    "make_prefill_step": "serve",
+}
+
+__all__ = sorted([*_LAZY, "CircuitBreaker", "HeartbeatRegistry", "OverloadSchedule",
+                  "StragglerMonitor"])
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        value = getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

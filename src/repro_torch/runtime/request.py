@@ -36,13 +36,19 @@ import hashlib
 import math
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from ..core.partition_service import PartitionService, PlanTicket, ServicePlan
+from ..core.partition_service import (
+    AdmissionRejectedError,
+    PartitionService,
+    PlanTicket,
+    ServicePlan,
+    graph_fingerprint,
+)
 from ..core.reorder import PackPlan
 from ..device import resolve_device
 from ..kernels.ops import (
@@ -150,6 +156,16 @@ class ServeInfo:
     bucket: Optional[str] = None  # bucket label, None = dedicated compile
     kernel_cache_hit: bool = False  # compiled-kernel cache
     batch_size: int = 1  # requests sharing this launch
+    # True when a ReplicaGroup served a cached plan because no replica was
+    # healthy (graceful degradation): the answer is correct for the plan it
+    # was computed from, but optimization against the *current* request may
+    # be pending.  Always False for a plain PartitionService.
+    stale: bool = False
+    # True when the brownout governor answered from cache because the
+    # service was shedding load (admission rejections in the recent
+    # window): the plan is a genuine warm hit, but no new partitioning
+    # work was admitted for this request.
+    degraded: bool = False
 
     def as_dict(self) -> dict:
         """Legacy dict view — superset of the old ``(y, info)`` keys."""
@@ -364,13 +380,16 @@ class CompileCache:
 class _Pending:
     """One queued request inside the micro-batcher."""
 
-    __slots__ = ("request", "sp", "ticket_hit", "operands", "t_enqueue", "event",
-                 "result", "error")
+    __slots__ = ("request", "sp", "ticket_hit", "stale", "degraded",
+                 "operands", "t_enqueue", "event", "result", "error")
 
-    def __init__(self, request, sp, ticket_hit, operands, t_enqueue) -> None:
+    def __init__(self, request, sp, ticket_hit, operands, t_enqueue,
+                 stale: bool = False, degraded: bool = False) -> None:
         self.request = request
         self.sp = sp
         self.ticket_hit = ticket_hit
+        self.stale = stale
+        self.degraded = degraded
         self.operands = operands
         self.t_enqueue = t_enqueue
         self.event = threading.Event()
@@ -405,9 +424,10 @@ class GraphServer:
     ``bucketing=None`` disables buckets entirely — every structure gets a
     dedicated callable through the same bounded cache.
 
-    ``service`` is any object with the ``PartitionService`` submit surface.
-    The reference's brownout ladder (overload degradation over a replicated
-    service) is not ported yet.
+    ``service`` is any object with the ``PartitionService`` submit surface —
+    a single service or a ``core.replica.ReplicaGroup`` (replication with
+    failover/hedging behind the same API; its degraded serves surface as
+    ``ServeInfo.stale``).
     """
 
     def __init__(
@@ -424,6 +444,10 @@ class GraphServer:
         max_wait_ms: float = 2.0,
         compile_cache_entries: int = 32,
         start_batcher: bool = True,
+        brownout_window_s: float = 1.0,
+        brownout_hedge_off: int = 3,
+        brownout_stale_only: int = 6,
+        brownout_priority_floor: int = 1,
     ) -> None:
         self.service = service
         self.k = k
@@ -444,6 +468,19 @@ class GraphServer:
         self._operands_cap = 256
         self._lock = threading.Lock()
         self._batch_hist: dict[int, int] = {}
+        # Brownout governor state: admission rejections observed in the
+        # trailing window drive a degradation ladder — level 1 turns
+        # hedging off (extra lanes amplify overload), level 2 answers
+        # low-priority tenants from cache only; recovery is automatic as
+        # rejections age out of the window.
+        self.brownout_window_s = float(brownout_window_s)
+        self.brownout_hedge_off = int(brownout_hedge_off)
+        self.brownout_stale_only = int(brownout_stale_only)
+        self.brownout_priority_floor = int(brownout_priority_floor)
+        self._rejections: deque[float] = deque(maxlen=1024)
+        self._hedge_saved: Optional[bool] = None
+        self._degraded_serves = 0
+        self._brownout_rejects = 0
         # Micro-batcher state: per-bucket-label deques of _Pending.
         self._queues: dict[Optional[str], list[_Pending]] = {}
         self._specs: dict[str, BucketSpec] = {}
@@ -456,22 +493,110 @@ class GraphServer:
             )
             self._batcher.start()
 
+    # -- brownout governor --------------------------------------------------
+
+    def brownout_level(self) -> int:
+        """0 = normal, 1 = hedging disabled, 2 = low-priority tenants are
+        cache-only.  Derived from admission rejections in the trailing
+        ``brownout_window_s`` — recovery is automatic once they age out."""
+        now = time.perf_counter()
+        with self._lock:
+            while self._rejections and now - self._rejections[0] > self.brownout_window_s:
+                self._rejections.popleft()
+            n = len(self._rejections)
+        if n >= self.brownout_stale_only:
+            return 2
+        if n >= self.brownout_hedge_off:
+            return 1
+        return 0
+
+    def _note_rejection(self) -> None:
+        with self._lock:
+            self._rejections.append(time.perf_counter())
+
+    def _apply_brownout(self, level: int) -> None:
+        """First rung of the ladder: hedging multiplies submitted load, so
+        it is the first thing to go under pressure (and the first thing
+        restored on recovery).  No-op for services without a hedge knob."""
+        svc = self.service
+        if not hasattr(svc, "hedge"):
+            return
+        with self._lock:
+            if level >= 1 and self._hedge_saved is None and svc.hedge:
+                self._hedge_saved = svc.hedge
+                svc.hedge = False
+            elif level == 0 and self._hedge_saved is not None:
+                svc.hedge = self._hedge_saved
+                self._hedge_saved = None
+
+    def _fingerprint(self, req: GraphRequest, edges) -> str:
+        """The fingerprint ``service.submit`` would assign this request —
+        computed here so the brownout path can probe caches without
+        submitting any work."""
+        opts = getattr(self.service, "default_opts", None)
+        return graph_fingerprint(edges, self.k, self.pad, opts, "ep", 0,
+                                 (req.n_rows, req.n_cols))
+
     # -- plan + bucket resolution ------------------------------------------
 
-    def _plan_for(self, req: GraphRequest) -> tuple[ServicePlan, bool]:
+    def _plan_for(self, req: GraphRequest) -> tuple[ServicePlan, bool, bool, bool]:
+        """``(plan, cache_hit, stale, degraded)`` for ``req``."""
         from ..core.graph import affinity_graph_from_coo
 
         edges = affinity_graph_from_coo(req.n_rows, req.n_cols, req.rows, req.cols)
-        ticket = self.service.submit(
-            edges,
-            self.k,
-            pad=self.pad,
-            coo=(req.n_rows, req.n_cols, req.rows, req.cols),
-            tenant=req.tenant if req.tenant is not None else self.tenant,
-            priority=req.priority if req.priority is not None else self.priority,
-            timeout=req.timeout,
-        )
-        return ticket.result(req.timeout), ticket.cache_hit
+        tenant = req.tenant if req.tenant is not None else self.tenant
+        priority = req.priority if req.priority is not None else self.priority
+        level = self.brownout_level()
+        self._apply_brownout(level)
+        fp: Optional[str] = None
+        lookup = getattr(self.service, "lookup", None)
+        if (level >= 2 and priority < self.brownout_priority_floor
+                and lookup is not None):
+            # Stale-only rung: answer low-priority tenants from cache
+            # without admitting new work.  A cache miss rejects outright —
+            # but is NOT counted as fresh rejection pressure, so brownout
+            # cannot sustain itself once the real overload has passed.
+            fp = self._fingerprint(req, edges)
+            cached = lookup(fp, tenant)
+            if cached is not None:
+                with self._lock:
+                    self._degraded_serves += 1
+                return cached, True, False, True
+            with self._lock:
+                self._brownout_rejects += 1
+            raise AdmissionRejectedError(
+                f"brownout: tenant {tenant!r} is cache-only under overload "
+                "and this graph is not cached",
+                retry_after_s=self.brownout_window_s, tenant=tenant,
+                reason="brownout")
+        try:
+            ticket = self.service.submit(
+                edges,
+                self.k,
+                pad=self.pad,
+                coo=(req.n_rows, req.n_cols, req.rows, req.cols),
+                tenant=tenant,
+                priority=priority,
+                # End-to-end deadline: a ReplicaGroup stops failover retries
+                # when it expires (a single PartitionService sheds queued
+                # work past it — the result() wait below is the final bound).
+                timeout=req.timeout,
+            )
+            sp = ticket.result(req.timeout)
+        except AdmissionRejectedError:
+            # The service shed this request.  Note the pressure (it drives
+            # the ladder), then degrade to a pure cache answer if we can.
+            self._note_rejection()
+            self._apply_brownout(self.brownout_level())
+            if lookup is not None:
+                cached = lookup(fp or self._fingerprint(req, edges), tenant)
+                if cached is not None:
+                    with self._lock:
+                        self._degraded_serves += 1
+                    return cached, True, False, True
+            raise
+        # ``stale`` exists on ReplicaGroup tickets only (degraded serve).
+        return sp, ticket.cache_hit, getattr(ticket, "stale", False), False
 
     def _bucket_for(self, sp: ServicePlan) -> Optional[tuple[str, BucketSpec]]:
         if self.bucketing is None or sp.plan is None or sp.padding is None:
@@ -566,6 +691,8 @@ class GraphServer:
                 bucket=label,
                 kernel_cache_hit=kernel_hit,
                 batch_size=len(group),
+                stale=p.stale,
+                degraded=p.degraded,
             )
             p.result = ServeResult(y=ys[i, : p.request.n_rows], info=info)
             p.event.set()
@@ -585,6 +712,8 @@ class GraphServer:
             bucket=None,
             kernel_cache_hit=kernel_hit,
             batch_size=1,
+            stale=p.stale,
+            degraded=p.degraded,
         )
         p.result = ServeResult(y=y, info=info)
         p.event.set()
@@ -636,15 +765,17 @@ class GraphServer:
 
     def serve(self, request: GraphRequest) -> ServeResult:
         """Synchronous lane: resolve plan, run a batch-of-1 immediately."""
-        sp, ticket_hit = self._plan_for(request)
+        sp, ticket_hit, stale, degraded = self._plan_for(request)
         bucket = self._bucket_for(sp)
         if bucket is None:
-            p = _Pending(request, sp, ticket_hit, None, time.perf_counter())
+            p = _Pending(request, sp, ticket_hit, None, time.perf_counter(),
+                         stale=stale, degraded=degraded)
             self._run_dedicated(p)
             return p.wait()
         label, spec = bucket
         ops = self._bucket_operands(request, sp, label, spec)
-        p = _Pending(request, sp, ticket_hit, ops, time.perf_counter())
+        p = _Pending(request, sp, ticket_hit, ops, time.perf_counter(),
+                     stale=stale, degraded=degraded)
         self._run_bucket_batch(label, spec, [p])
         return p.wait()
 
@@ -657,15 +788,17 @@ class GraphServer:
         """
         if self._batcher is None:
             raise RuntimeError("this GraphServer was built with start_batcher=False")
-        sp, ticket_hit = self._plan_for(request)
+        sp, ticket_hit, stale, degraded = self._plan_for(request)
         bucket = self._bucket_for(sp)
         if bucket is None:
-            p = _Pending(request, sp, ticket_hit, None, time.perf_counter())
+            p = _Pending(request, sp, ticket_hit, None, time.perf_counter(),
+                         stale=stale, degraded=degraded)
             label = None
         else:
             label, spec = bucket
             ops = self._bucket_operands(request, sp, label, spec)
-            p = _Pending(request, sp, ticket_hit, ops, time.perf_counter())
+            p = _Pending(request, sp, ticket_hit, ops, time.perf_counter(),
+                         stale=stale, degraded=degraded)
         with self._cv:
             if self._closed:
                 raise RuntimeError("GraphServer is closed")
@@ -692,6 +825,10 @@ class GraphServer:
         s = self.compile_cache.stats()
         s["batch_hist"] = hist
         s["buckets"] = per_bucket
+        with self._lock:
+            s["degraded_serves"] = self._degraded_serves
+            s["brownout_rejects"] = self._brownout_rejects
+        s["brownout_level"] = self.brownout_level()
         return s
 
     def metrics(self):

@@ -1,10 +1,15 @@
 """The port's copies of the host core and configs give the reference's exactly.
 
 ``src/repro_torch/core`` and ``src/repro_torch/configs`` hold verbatim copies
-of ``src/repro/core`` and ``src/repro/configs`` modules; these tests catch
-the two drifting apart.
+of ``src/repro/core`` and ``src/repro/configs`` modules,
+``src/repro_torch/runtime/fault.py`` verbatim copies of four classes of
+``src/repro/runtime/fault.py``, and ``src/repro_torch/launch/replica_worker.py``
+a copy of ``src/repro/launch/replica_worker.py`` that names the port's
+package; these tests catch the two drifting apart.
 """
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +24,20 @@ CONFIG_COPIES = ["__init__", "_register_all", "base", "granite_3_8b", "jamba_1_5
                  "qwen3_32b", "qwen3_moe_30b_a3b", "seamless_m4t_medium"]
 COPIES = ["graph", "refine", "coarsen", "partition", "transform", "baselines", "metrics",
           "edge_partition", "reorder", "admission", "plan_cache", "plan_scheduler",
-          "partition_service"]
+          "partition_service", "replica", "transport"]
+FAULT_CLASSES = ["CircuitBreaker", "OverloadSchedule", "HeartbeatRegistry", "StragglerMonitor"]
+# The only edits the port's replica worker makes to its source: the package
+# name in imports, the -m module and _src_root, and the comments that named
+# the JAX package's layout.
+WORKER_SUBS = [
+    ("repro.", "repro_torch."),
+    ("import repro\n", "import repro_torch\n"),
+    ("# repro is a namespace package (no __init__.py): locate it via __path__.",
+     "# repro_torch is a regular package: its __path__ names src/repro_torch."),
+    ("# Deferred: the parent only pays the jax import inside the child.",
+     "# Deferred: only the child pays for importing the plan service."),
+]
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -82,3 +100,31 @@ def test_every_config_is_copied():
 
     src = Path(__file__).resolve().parents[1] / "src"
     assert sorted(p.stem for p in (src / "repro" / "configs").glob("*.py")) == sorted(CONFIG_COPIES)
+
+
+def _classes(path: Path) -> dict:
+    text = path.read_text()
+    return {node.name: ast.get_source_segment(text, node)
+            for node in ast.parse(text).body if isinstance(node, ast.ClassDef)}
+
+
+@pytest.mark.parametrize("name", FAULT_CLASSES)
+def test_fault_class_is_verbatim(name):
+    ref = _classes(SRC / "repro" / "runtime" / "fault.py")
+    port_path = SRC / "repro_torch" / "runtime" / "fault.py"
+    header = port_path.read_text().split("\n", 1)[0]
+    assert header.startswith("# Copied") and "src/repro/runtime/fault.py" in header
+    port = _classes(port_path)
+    assert sorted(port) == sorted(FAULT_CLASSES)  # FaultTolerantLoop stays behind
+    assert port[name] == ref[name]
+
+
+def test_replica_worker_differs_only_by_package_name():
+    ref = (SRC / "repro" / "launch" / "replica_worker.py").read_text()
+    header, body = (SRC / "repro_torch" / "launch" / "replica_worker.py").read_text().split(
+        "\n", 1)
+    assert header.startswith("# Copied") and "src/repro/launch/replica_worker.py" in header
+    for old, new in WORKER_SUBS:
+        assert old in ref, old
+        ref = ref.replace(old, new)
+    assert body == ref

@@ -115,6 +115,38 @@ def test_server_byte_identity_on_card(cuda_device, mode):
         assert torch.equal(y_own, y1)  # bucketed == dedicated
 
 
+def _coo_y(s, n_rows):
+    return np.bincount(s["rows"], weights=s["vals"].astype(np.float64)
+                       * s["x"].astype(np.float64)[s["cols"]], minlength=n_rows)
+
+
+@pytest.mark.parametrize("driver, kwargs, lane", [
+    ("multitenant", {}, "spmv_software_cache"),
+    ("replicated", {"mode": "streaming"}, "spmv_streaming_batched"),
+    ("replicated", {"transport": "process"}, "spmv_software_cache"),
+    ("overload", {}, "spmv_software_cache"),
+])
+def test_slice_drivers_on_card(cuda_device, driver, kwargs, lane):
+    """The multitenant, replicated and overload drivers at their defaults on
+    the card (no device given): every y within 1e-5 of the COO product,
+    nothing stale, and the bucketed lane's kernel and the combine launched."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve
+
+    reset_launch_counts()
+    report = getattr(serve, f"run_{driver}_graph_serving")(keep_samples=True, **kwargs)
+    launches = launch_counts()
+    assert report["device"].startswith("cuda")
+    samples = report["samples"]
+    samples = ([s for ss in samples.values() for s in ss] if isinstance(samples, dict)
+               else samples)
+    n_rows = 192 if driver == "overload" else 256
+    assert samples and not any(s["stale"] for s in samples)
+    for s in samples:
+        np.testing.assert_allclose(s["y"], _coo_y(s, n_rows), rtol=1e-5, atol=1e-5)
+    assert launches[lane] >= len(samples) and launches["ep_combine"] >= len(samples)
+
+
 def synthetic_tiles(b, k, e_max, y_max, n_cols, counts, occupied, dtype, seed, hub=0):
     """Streaming operands packed as ``build_pack_plan`` packs them, without a
     partition: row r = b * k + p holds ``counts[r]`` tasks first, sorted by y

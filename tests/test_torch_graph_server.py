@@ -4,9 +4,10 @@ Mirrors ``tests/test_graph_server.py``'s serve and batching guarantees:
 bucketed results match the COO oracle and are byte-identical to dedicated
 serving, one built callable serves every structure in a bucket, ceilings and
 oversized requests, eviction, and micro-batching with per-request tenant
-attribution where the stacked batch is byte-identical to the batch of one.
-The port's y is also held against the JAX GraphServer's y on the same
-requests.
+attribution where the stacked batch is byte-identical to the batch of one,
+and the brownout ladder over a replicated service.  The port's y, brownout
+levels and ``stale``/``degraded`` flags are also held against the JAX
+GraphServer's on the same requests.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +18,11 @@ torch = pytest.importorskip("torch")
 import repro.core as ref_core  # noqa: E402
 import repro.runtime as ref_runtime  # noqa: E402
 from repro.kernels.ref import spmv_coo_ref as jax_coo_ref  # noqa: E402
-from repro_torch.core import PartitionService, synthetic_bipartite_graph  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    PartitionService,
+    ReplicaGroup,
+    synthetic_bipartite_graph,
+)
 from repro_torch.kernels.ref import spmv_coo_ref  # noqa: E402
 from repro_torch.runtime import BucketPolicy, GraphRequest, GraphServer  # noqa: E402
 
@@ -163,3 +168,105 @@ class TestAgainstJaxServer:
                                      jnp.asarray(req.vals), jnp.asarray(req.x))
                 np.testing.assert_allclose(got.y.numpy(), np.asarray(oracle),
                                            rtol=1e-5, atol=1e-5)
+
+
+class TestBrownout:
+    """The brownout ladder of ``tests/test_graph_server.py``, with every
+    level and flag held against the JAX GraphServer on the same sequence."""
+
+    def test_ladder_levels_and_window_recovery(self, service):
+        import time
+
+        knobs = dict(brownout_window_s=0.25, brownout_hedge_off=2, brownout_stale_only=4)
+        with ref_core.PartitionService() as ref_svc:
+            servers = [GraphServer(service, k=4, pad=8, device=CPU, start_batcher=False,
+                                   **knobs),
+                       ref_runtime.GraphServer(ref_svc, k=4, pad=8, start_batcher=False,
+                                               **knobs)]
+            levels = [[] for _ in servers]
+
+            def read():
+                for got, server in zip(levels, servers):
+                    got.append(server.brownout_level())
+
+            read()
+            for _ in range(4):
+                for server in servers:
+                    server._note_rejection()
+                read()
+            for got, server in zip(levels, servers):
+                got.append(server.stats()["brownout_level"])
+            time.sleep(0.3)
+            read()
+        assert levels[0] == [0, 0, 1, 1, 2, 2, 0]
+        assert levels[0] == levels[1]
+
+    def test_hedge_rung_disables_and_restores_group_hedging(self):
+        import time
+
+        knobs = dict(brownout_window_s=0.25, brownout_hedge_off=1, brownout_stale_only=99)
+        req = _entry(96, 96, 3, seed=0)
+        ref_req = ref_runtime.GraphRequest(req.n_rows, req.n_cols, req.rows, req.cols,
+                                           req.vals, req.x)
+        with ReplicaGroup(2) as g, ref_core.ReplicaGroup(2) as rg:
+            server = GraphServer(service=g, k=4, device=CPU, start_batcher=False, **knobs)
+            ref_server = ref_runtime.GraphServer(service=rg, k=4, start_batcher=False, **knobs)
+            hedges = []
+            for step in range(3):
+                if step == 1:
+                    server._note_rejection()
+                    ref_server._note_rejection()
+                if step == 2:
+                    time.sleep(0.3)
+                got, want = server.serve(req), ref_server.serve(ref_req)
+                np.testing.assert_allclose(got.y.numpy(), np.asarray(want.y),
+                                           rtol=1e-5, atol=1e-5)
+                hedges.append((g.hedge, rg.hedge))
+        assert hedges == [(True, True), (False, False), (True, True)]
+
+    def test_stale_only_serves_cached_degraded_and_rejects_cold(self):
+        from repro_torch.core import AdmissionRejectedError
+
+        knobs = dict(brownout_window_s=5.0, brownout_hedge_off=1, brownout_stale_only=2,
+                     brownout_priority_floor=1)
+
+        def pair(seed, priority=None):
+            req = _entry(96, 96, 3, seed=seed)
+            req.priority = priority
+            return req, ref_runtime.GraphRequest(req.n_rows, req.n_cols, req.rows, req.cols,
+                                                 req.vals, req.x, priority=priority)
+
+        with ReplicaGroup(2, hedge=False) as g, ref_core.ReplicaGroup(2, hedge=False) as rg:
+            server = GraphServer(service=g, k=4, device=CPU, start_batcher=False, **knobs)
+            ref_server = ref_runtime.GraphServer(service=rg, k=4, start_batcher=False, **knobs)
+
+            def both(req, ref_req):
+                got, want = server.serve(req), ref_server.serve(ref_req)
+                assert (got.info.stale, got.info.degraded) == (want.info.stale,
+                                                                want.info.degraded)
+                np.testing.assert_allclose(got.y.numpy(), np.asarray(want.y),
+                                           rtol=1e-5, atol=1e-5)
+                return got
+
+            hot = pair(1)  # default priority 0 < floor
+            res = both(*hot)
+            assert not res.info.degraded
+            for _ in range(2):
+                server._note_rejection()
+                ref_server._note_rejection()
+            res2 = both(*hot)
+            assert res2.info.degraded and res2.info.as_dict()["degraded"] is True
+            assert torch.equal(res2.y, res.y)
+            cold, ref_cold = pair(2)
+            with pytest.raises(AdmissionRejectedError) as ei:
+                server.serve(cold)
+            with pytest.raises(ref_core.AdmissionRejectedError) as ref_ei:
+                ref_server.serve(ref_cold)
+            assert ei.value.reason == ref_ei.value.reason == "brownout"
+            assert ei.value.retry_after_s == ref_ei.value.retry_after_s == 5.0
+            assert not both(*pair(3, priority=1)).info.degraded
+            stats, ref_stats = server.stats(), ref_server.stats()
+            for key in ("degraded_serves", "brownout_rejects", "brownout_level"):
+                assert stats[key] == ref_stats[key], key
+            assert (stats["degraded_serves"], stats["brownout_rejects"],
+                    stats["brownout_level"]) == (1, 1, 2)
