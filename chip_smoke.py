@@ -75,6 +75,24 @@ idle share); and the model is checked end to end in float32: reduced
 qwen3-moe and granite on the card against the CPU (1e-4), and prefill +
 decode against teacher forcing at full width, 2 layers (2e-4).
 
+The SSM serving path (``ssm_serving``): mamba2-2.7b at its published widths
+and depth (64 layers, d_model 2560, 80 SSD heads of 64, d_state 128, chunk
+256, vocab 50,280, tied embeddings; 2.70 B parameters), f32 masters and bf16
+compute copies drawn on the card from a seed, serves a batch of 4 prompts of
+2,048 tokens and greedily decodes 32 tokens through ``serve_config``, after
+the LM phases have released their memory.  The path is attention-free and
+expert-free: it must launch none of the kernels.  A warm prefill and decode
+step are profiled as the LM's are (``ssm_profile``), and ``lm_checks`` also
+holds reduced mamba2 card against CPU and mamba2 at full width, 2 layers,
+against teacher forcing over a prompt of 300 (two SSD chunks, padded).
+
+The ``examples`` phase runs the port's three examples through their
+``main(["--device", "cuda"])``: the quickstart (EP-SpMV within 1e-4 of the
+COO oracle, through the software-cache kernel and the combine), CG behind
+the adaptive scheduler (residual under 1e-3; the kernel runs on the
+iterations the scheduler gives it), and serve_lm with its default reduced
+granite-3-8b (flash attention) and with reduced mamba2-2.7b.
+
 The build phase also counts the HGMMA (wgmma) and UTMALDG (TMA load)
 instructions in each kernel of the flash-attention and expert-FFN libraries,
 and the 16-byte global loads (LDG.E...128) in each SpMV kernel
@@ -138,6 +156,12 @@ OVERLOAD = {"queue_bound": 4, "flood_clients": 6, "flood_requests_each": 4,
 # (batch, prompt tokens, generated tokens).
 LM_ARCH, LM_LAYERS = "qwen3-moe-30b-a3b", 8
 LM_TRAFFIC = (4, 2048, 32)
+# SSM serving: mamba2-2.7b at its published widths and all 64 layers.
+SSM_ARCH = "mamba2-2.7b"
+SSM_TRAFFIC = (4, 2048, 32)
+# Teacher forcing of mamba2 at full width: a prompt that crosses the SSD
+# chunk of 256 and is padded to two chunks.
+SSM_TF_PROMPT = 300
 DEVICE = "cuda"
 SPMV_KERNELS = ("spmv_software_cache", "spmv_streaming", "spmv_streaming_batched", "ep_combine")
 # The kernels each serving phase after ``batched`` must launch: the bucketed
@@ -878,7 +902,7 @@ def phase_lm_kernels(cfg, state, launches):
     return entries
 
 
-def phase_lm_profile(cfg, state):
+def phase_lm_profile(cfg, state, traffic=LM_TRAFFIC, phase="lm_profile"):
     """Where a warm prefill and a warm decode step spend their time.
 
     Wall time on the host clock (ending in a synchronize), and the device's
@@ -891,8 +915,8 @@ def phase_lm_profile(cfg, state):
     import torch
 
     model, params, prompt = state["model"], state["compute"], state["prompt"]
-    b, s, gen = LM_TRAFFIC
-    out = {"phase": "lm_profile"}
+    b, s, gen = traffic
+    out = {"phase": phase}
     cache = None
 
     def prefill():
@@ -916,19 +940,21 @@ def phase_lm_profile(cfg, state):
         ours = {k: sum(v for key, v in device.items() if _is_kernel(k, key)) for k in LM_KERNELS}
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                      "idle_share": 1.0 - busy / wall_ms, "kernels_ms": ours,
-                     "device_top": sorted(device.items(), key=lambda kv: -kv[1])[:10]}
+                     "device_kernels": len(device),
+                     "device_top": sorted(device.items(), key=lambda kv: -kv[1])[:12]}
     _emit(out)
 
 
 def phase_lm_checks():
     """The model end to end, float32, against the twins and against itself.
 
-    (1) Reduced qwen3-moe-30b-a3b and granite-3-8b: the same weights (drawn
-    on the CPU) and prompt through prefill and three decode steps, fed the
-    CPU's tokens, on the card (kernels) and on the CPU (twins).  (2) Teacher
-    forcing at qwen3-moe-30b-a3b's full width, 2 layers, B = 2, S = 256,
-    capacity factor 16 (nothing dropped): prefill(S) then decode of token S
-    equals prefill(S + 1)'s last logits.
+    (1) Reduced qwen3-moe-30b-a3b, granite-3-8b and mamba2-2.7b: the same
+    weights (drawn on the CPU) and prompt through prefill and three decode
+    steps, fed the CPU's tokens, on the card (kernels) and on the CPU
+    (twins).  (2) Teacher forcing at qwen3-moe-30b-a3b's full width, 2
+    layers, B = 2, S = 256, capacity factor 16 (nothing dropped), and at
+    mamba2-2.7b's full width, 2 layers, B = 2, S = SSM_TF_PROMPT: prefill(S)
+    then decode of token S equals prefill(S + 1)'s last logits.
     """
     import dataclasses
 
@@ -943,7 +969,7 @@ def phase_lm_checks():
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     out = {"phase": "lm_checks", "tf32": False, "tol": {"card_vs_cpu": E2E_TOL,
                                                        "teacher_forcing": TF_TOL}}
-    for arch in (LM_ARCH, "granite-3-8b"):
+    for arch in (LM_ARCH, "granite-3-8b", SSM_ARCH):
         cfg = get_config(arch, reduced=True)
         cpu, card = Model(cfg, device="cpu"), Model(cfg, device=dev)
         params = cpu.init(0)
@@ -962,23 +988,164 @@ def phase_lm_checks():
             raise AssertionError(f"{arch} reduced: card vs CPU logits differ by {errs}")
         out[f"{arch}_reduced_max_abs_err"] = errs
 
+    def teacher_forcing(cfg, s):
+        model = Model(cfg, device=dev)
+        params = model.init(1)
+        tokens = torch.from_numpy(
+            np.random.default_rng(1).integers(2, cfg.vocab_size, (2, s + 1))).to(dev)
+        whole, _ = model.prefill(params, {"tokens": tokens}, s + 1)
+        _, cache = model.prefill(params, {"tokens": tokens[:, :s]}, s + 1)
+        step, _ = model.decode_step(params, cache, {"tokens": tokens[:, s:]}, s)
+        err = (step - whole).abs().max().item()
+        if not torch.isfinite(step).all() or err > TF_TOL:
+            raise AssertionError(f"{cfg.name}: teacher forcing at full width: logits differ "
+                                 f"by {err}")
+        return {"layers": cfg.n_layers, "batch": 2, "prompt": s, "max_abs_err": err,
+                "logit_abs_max": whole.abs().max().item()}
+
     full = get_config(LM_ARCH)
-    cfg = dataclasses.replace(full, n_layers=2, compute_dtype="float32",
-                              moe=dataclasses.replace(full.moe, capacity_factor=16.0))
-    model = Model(cfg, device=dev)
-    params = model.init(1)
-    s = 256
-    tokens = torch.from_numpy(
-        np.random.default_rng(1).integers(2, cfg.vocab_size, (2, s + 1))).to(dev)
-    whole, _ = model.prefill(params, {"tokens": tokens}, s + 1)
-    _, cache = model.prefill(params, {"tokens": tokens[:, :s]}, s + 1)
-    step, _ = model.decode_step(params, cache, {"tokens": tokens[:, s:]}, s)
-    err = (step - whole).abs().max().item()
-    if not torch.isfinite(step).all() or err > TF_TOL:
-        raise AssertionError(f"teacher forcing at full width: logits differ by {err}")
-    out["teacher_forcing"] = {"layers": 2, "batch": 2, "prompt": s, "max_abs_err": err,
-                              "logit_abs_max": whole.abs().max().item()}
+    out["teacher_forcing"] = teacher_forcing(
+        dataclasses.replace(full, n_layers=2, compute_dtype="float32",
+                            moe=dataclasses.replace(full.moe, capacity_factor=16.0)), 256)
+    ssm = dataclasses.replace(get_config(SSM_ARCH), n_layers=2, compute_dtype="float32")
+    out["teacher_forcing_ssm"] = {**teacher_forcing(ssm, SSM_TF_PROMPT),
+                                  "chunk": ssm.ssm.chunk}
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    _emit(out)
+
+
+# ---------------------------------------------------------------------------
+# SSM serving: prefill + greedy decode of mamba2-2.7b, and the examples
+# ---------------------------------------------------------------------------
+
+
+def _ssm_bounds(cfg, b, s):
+    """The least time a mamba2 prefill and a decode step could take here.
+
+    Prefill: the projections' bf16 products over the tensor-core rate plus
+    the chunked SSD's products, which the reference sums in float32, over
+    the float32 rate.  Decode: every bf16 weight read once over the memory
+    rate (the few float32 leaves are counted at 2 bytes too).
+    """
+    from repro_torch.configs import param_count
+
+    m = cfg.ssm
+    d, di = cfg.d_model, m.expand * cfg.d_model
+    h, p, n, g, chunk = di // m.head_dim, m.head_dim, m.d_state, m.n_groups, m.chunk
+    d_in_proj = 2 * di + 2 * g * n + h
+    nc = -(-s // chunk)
+    proj = 2 * b * s * (d * d_in_proj + di * d) * cfg.n_layers
+    # C·Bᵀ per chunk, the decayed scores against x, the end states, the off-diagonal term.
+    ssd = 2 * b * nc * (g * chunk * chunk * n + h * chunk * chunk * p
+                        + 2 * h * p * n * chunk) * cfg.n_layers
+    weight_bytes = 2 * param_count(cfg)["total"]
+    return {"prefill_bf16_flops": proj, "prefill_f32_flops": ssd,
+            "prefill_bound_ms": (proj / BF16_FLOPS + ssd / F32_FLOPS) * 1e3,
+            "decode_weight_bytes": weight_bytes,
+            "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_ssm_serving():
+    """The port's run_serving path for the ssm family at full width and depth.
+
+    Drives ``serve_config`` with mamba2-2.7b as published: f32 master
+    weights drawn on the card from seed 0, bf16 compute copies (dt_bias,
+    A_log and D kept f32) cast once before the prompts, prefill through the
+    chunked SSD, then greedy decode through the recurrent step.  Counts are
+    set to 0 just before and read just after: the path has no attention and
+    no experts, so no kernel may have launched.
+    """
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve_config
+
+    cfg = get_config(SSM_ARCH)
+    b, s, gen = SSM_TRAFFIC
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tokens, stats, state = serve_config(cfg, b, s, gen, seed=0)
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"ssm_serving launched kernels: {launches}")
+    if (tuple(tokens.shape) != (b, gen) or int(tokens.min()) < 0
+            or int(tokens.max()) >= cfg.vocab_size):
+        raise AssertionError(f"ssm_serving tokens {tuple(tokens.shape)} out of range")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    if n_params != param_count(cfg)["total"]:
+        raise AssertionError(f"ssm_serving: {n_params} parameters, the config counts "
+                             f"{param_count(cfg)['total']}")
+    s_cfg = cfg.ssm
+    _emit({"phase": "ssm_serving", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_inner": s_cfg.expand * cfg.d_model,
+           "ssd_heads": s_cfg.expand * cfg.d_model // s_cfg.head_dim,
+           "head_dim": s_cfg.head_dim, "d_state": s_cfg.d_state, "chunk": s_cfg.chunk,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "batch": b, "prompt_len": s, "gen": gen,
+           "cast_ms": stats["cast_s"] * 1e3, "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms_per_token": stats["decode_s"] * 1e3 / (gen - 1),
+           "tok_per_s": stats["tok_per_s"], "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           **_ssm_bounds(cfg, b, s), "tokens_head": tokens[0, :8].tolist()})
+    return cfg, state
+
+
+# The examples' runs in the ``examples`` phase: (name, arguments after --device).
+EXAMPLES = (("quickstart", []), ("spmv_cg", []), ("serve_lm", []),
+            ("serve_lm", ["--arch", SSM_ARCH]))
+
+
+def phase_examples():
+    """The port's three examples through their ``main(["--device", "cuda"])``.
+
+    Each must print its ``OK`` line last, after its own assertion.  Counts
+    are set to 0 before each: the quickstart launches the software-cache
+    kernel and the combine once; CG launches both once per call the
+    scheduler served with the optimized SpMV; serve_lm's granite launches
+    flash attention once per layer, its mamba2 no kernel.
+    """
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    root = Path(__file__).resolve().parent / "examples"
+    out = {"phase": "examples"}
+    for name, extra in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                      root / f"torch_{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = mod.main(["--device", "cuda", *extra])
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        lines = buf.getvalue().splitlines()
+        if not lines or lines[-1] != f"{name} OK":
+            raise AssertionError(f"example {name} {extra}: last line {lines[-1:]}")
+        key = name if not extra else f"{name}_{extra[-1]}"
+        if name == "quickstart":
+            rec, want = {"max_abs_err": result}, {"spmv_software_cache": 1, "ep_combine": 1}
+        elif name == "spmv_cg":
+            rec = {k: result[k] for k in ("residual", "iterations", "state", "calls",
+                                          "optimized_calls", "optimize_time_s")}
+            n = result["optimized_calls"]
+            want = {"spmv_software_cache": n, "ep_combine": n} if n else {}
+        else:
+            cfg = get_config(extra[-1] if extra else "granite-3-8b", reduced=True)
+            tokens, stats = result
+            rec = {"arch": cfg.name, "tokens": list(tokens.shape),
+                   "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"]}
+            want = {"flash_attention": cfg.n_layers} if cfg.uses_attention else {}
+        if launches != want:
+            raise AssertionError(f"example {key}: launches {launches}, expected {want}")
+        out[key] = {**rec, "seconds": seconds, "launches": launches}
     _emit(out)
 
 
@@ -1053,6 +1220,12 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_lm_checks()
+    torch.cuda.empty_cache()
+    ssm_cfg, ssm_state = phase_ssm_serving()
+    phase_lm_profile(ssm_cfg, ssm_state, SSM_TRAFFIC, "ssm_profile")
+    del ssm_state
+    torch.cuda.empty_cache()
+    phase_examples()
     _emit({"kernels": entries})
     _emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

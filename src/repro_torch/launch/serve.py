@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
         --reduced --batch 4 --prompt-len 32 --gen 16
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+
     PYTHONPATH=src python -m repro_torch.launch.serve --graph --requests 16 --churn 0.01
 
     PYTHONPATH=src python -m repro_torch.launch.serve --graph --batched \
@@ -18,9 +20,11 @@
 
 Port of the ``--arch`` and ``--graph`` modes of ``src/repro/launch/serve.py``.
 The ``--arch`` mode prefills a batch of seeded random prompts on a randomly
-initialised model of that architecture (the ``dense`` and ``moe`` families)
-and greedily decodes from it, through the flash-attention and expert-FFN
-kernels.  The ``--graph`` mode demonstrates the
+initialised model of that architecture (the ``dense``, ``moe`` and ``ssm``
+families) and greedily decodes from it, through the flash-attention and
+expert-FFN kernels where the architecture has attention and experts (the
+attention-free ``ssm`` family, mamba2, runs plain PyTorch ops, as the
+reference runs plain JAX).  The ``--graph`` mode demonstrates the
 paper-§4.2 serving architecture: a stream of SpMV requests over a (mostly)
 repeated matrix hits the PartitionService's fingerprint cache; a churn batch
 triggers an *async* incremental repartition on the optimization thread while

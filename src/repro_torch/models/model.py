@@ -1,7 +1,8 @@
 """Public model facade for serving (port of ``repro.models.model``).
 
-``Model(cfg, device)`` initialises weights, allocates the KV cache, and runs
-prefill and one-token decode for the ``dense`` and ``moe`` families.  A
+``Model(cfg, device)`` initialises weights, allocates the decode cache (K/V,
+or the conv and SSD states of the ``ssm`` family), and runs prefill and
+one-token decode for the ``dense``, ``moe`` and ``ssm`` families.  A
 server casts the compute-type copies of the master weights once, with
 :meth:`Model.compute_params`, and passes the copies to every step; a step
 casts what it is given, which leaves copies already of the compute type as

@@ -63,9 +63,9 @@ def params_from_reference(tree: dict, cfg, device) -> Params:
     ``tree`` is ``repro.models.Model(cfg).init(key)`` with every leaf turned
     into a numpy array (``jax.tree.map(np.asarray, params)``); its ``blocks``
     leaves carry a leading layer axis, which becomes one module per layer.
-    Only the ``dense`` and ``moe`` families are carried.
+    The ``dense``, ``moe`` and ``ssm`` families are carried.
     """
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(f"the {cfg.family} family is not ported to repro_torch yet")
     dev = torch.device(device)
 

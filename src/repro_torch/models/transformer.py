@@ -1,19 +1,22 @@
-"""Dense and MoE transformer stacks for serving (port of ``repro.models.transformer``).
+"""Dense, MoE and SSM stacks for serving (port of ``repro.models.transformer``).
 
 The reference scans one stacked layer body with ``lax.scan``; here each layer
 is its own :class:`~repro_torch.models.params.Params` module in
-``params.blocks`` and a Python loop walks them.  Only the ``dense`` and
-``moe`` families are ported, without M-RoPE or modality front ends; the
-``ssm``, ``hybrid`` and ``encdec`` families raise ``NotImplementedError``.
-Prefill attention runs the flash kernel on the un-repeated (GQA) K/V; decode
-attention is plain PyTorch over the cache, which ``forward_decode`` updates
-in place (the reference returns a new cache; the port saves the copy).
+``params.blocks`` and a Python loop walks them.  The ``dense``, ``moe`` and
+``ssm`` (attention-free Mamba2) families are ported, without M-RoPE or
+modality front ends; the ``hybrid`` and ``encdec`` families raise
+``NotImplementedError``.  Prefill attention runs the flash kernel on the
+un-repeated (GQA) K/V; decode attention is plain PyTorch over the cache.
+The ``ssm`` family's cache is the per-layer conv and SSD states instead of
+K/V.  ``forward_decode`` updates the cache in place (the reference returns
+a new cache; the port saves the copy).
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import flash_attention
+from . import mamba2 as m2
 from .layers import (
     apply_rope,
     decode_attention,
@@ -53,10 +56,10 @@ def _cdtype(cfg):
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` naming what of ``cfg`` the port lacks."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
-            "(dense and moe are)")
+            "(dense, moe and ssm are)")
     if cfg.mrope or cfg.frontend:
         what = "M-RoPE" if cfg.mrope else f"the {cfg.frontend} front end"
         raise NotImplementedError(f"{cfg.name}: {what} is not ported to repro_torch yet")
@@ -132,8 +135,15 @@ def _init_ffn(gen, cfg) -> dict:
     }
 
 
+def _init_mamba(gen, cfg) -> dict:
+    return {
+        "norm": init_rms_norm(cfg.d_model, _dtype(cfg), gen.device),
+        "mamba": m2.init_mamba_params(gen, cfg.d_model, cfg.ssm, _dtype(cfg)),
+    }
+
+
 def init_params(cfg, seed: int, device) -> Params:
-    """Random weights for the dense and moe families, drawn on ``device``
+    """Random weights for the ported families, drawn on ``device``
     from a ``torch.Generator`` seeded with ``seed`` (not the reference's
     numbers: carry those across with ``params_from_reference``)."""
     check_supported(cfg)
@@ -145,8 +155,11 @@ def init_params(cfg, seed: int, device) -> Params:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, dt)
-    tree["blocks"] = [{"attn": _init_attn(gen, cfg), "ffn": _init_ffn(gen, cfg)}
-                      for _ in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        tree["blocks"] = [_init_mamba(gen, cfg) for _ in range(cfg.n_layers)]
+    else:
+        tree["blocks"] = [{"attn": _init_attn(gen, cfg), "ffn": _init_ffn(gen, cfg)}
+                          for _ in range(cfg.n_layers)]
     return Params(tree)
 
 
@@ -234,10 +247,23 @@ def _ffn(p, cfg, h, capacity: int):
 
 
 def init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
-    """Decode-time KV cache (zeros; prefill fills it): k/v ``(L, B, T, Hkv, Dh)``."""
+    """Decode-time cache (zeros; prefill fills it).
+
+    Attention families: k/v ``(L, B, T, Hkv, Dh)``.  The ``ssm`` family: the
+    conv state ``(L, B, W-1, conv_dim)`` in the compute type and the float32
+    SSD state ``(L, B, H, P, N)``; ``max_len`` does not size it.
+    """
     check_supported(cfg)
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
     dt = _cdtype(cfg)
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        conv_dim = d_inner + 2 * s.n_groups * s.d_state
+        conv = (cfg.n_layers, batch_size, s.d_conv - 1, conv_dim)
+        ssm = (cfg.n_layers, batch_size, d_inner // s.head_dim, s.head_dim, s.d_state)
+        return {"conv": torch.zeros(conv, dtype=dt, device=device),
+                "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -247,11 +273,23 @@ def _embed(params, cfg, tokens):
 
 
 def forward_prefill(params, cfg, batch: dict, max_len: int):
-    """Returns (last-position hidden (B, D), cache with the prompt's k/v)."""
+    """Returns (last-position hidden (B, D), cache with the prompt's k/v or,
+    for ``ssm``, each layer's conv and SSD states after the prompt)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     h = _embed(params, cfg, tokens)
     b, s, _ = h.shape
+    if cfg.family == "ssm":
+        cache = init_cache(cfg, b, max_len, h.device)
+        # The conv state comes back in the param type, as the reference returns it.
+        cache["conv"] = cache["conv"].to(_dtype(cfg))
+        for i, blk in enumerate(params["blocks"]):
+            x = rms_norm(h, blk["norm"], cfg.norm_eps)
+            y, (conv, ssm) = m2.mamba_mixer(blk["mamba"], x, cfg.ssm, return_state=True)
+            h = h + y
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+        return rms_norm(h[:, -1, :], params["final_norm"], cfg.norm_eps), cache
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
@@ -271,6 +309,16 @@ def forward_decode(params, cfg, cache: dict, batch: dict, pos: int):
     float32, cache updated in place)."""
     check_supported(cfg)
     h = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "ssm":  # pos is unused: the state carries the position
+        for i, blk in enumerate(params["blocks"]):
+            x = rms_norm(h, blk["norm"], cfg.norm_eps)
+            y, conv, ssm = m2.mamba_decode_step(blk["mamba"], x[:, 0, :], cache["conv"][i],
+                                                cache["ssm"][i], cfg.ssm)
+            h = h + y[:, None, :]
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+        h = rms_norm(h[:, 0, :], params["final_norm"], cfg.norm_eps)
+        return dot_f32(h, lm_head(params, cfg)), cache
     pos = int(pos)
     cap = moe_capacity(cfg, h.shape[0]) if cfg.ffn_kinds()[0] == "moe" else 0
     for i, blk in enumerate(params["blocks"]):

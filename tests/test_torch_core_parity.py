@@ -24,7 +24,7 @@ CONFIG_COPIES = ["__init__", "_register_all", "base", "granite_3_8b", "jamba_1_5
                  "qwen3_32b", "qwen3_moe_30b_a3b", "seamless_m4t_medium"]
 COPIES = ["graph", "refine", "coarsen", "partition", "transform", "baselines", "metrics",
           "edge_partition", "reorder", "admission", "plan_cache", "plan_scheduler",
-          "partition_service", "replica", "transport"]
+          "partition_service", "replica", "transport", "hierarchy", "moe_schedule", "overhead"]
 FAULT_CLASSES = ["CircuitBreaker", "OverloadSchedule", "HeartbeatRegistry", "StragglerMonitor"]
 # The only edits the port's replica worker makes to its source: the package
 # name in imports, the -m module and _src_root, and the comments that named
@@ -66,6 +66,19 @@ def test_partition_plan_and_fingerprint_identical(seed):
 
     assert (ref_fingerprint(ref_edges, k, 8, None, "ep", 0, (n_rows, n_cols))
             == port_fingerprint(port_edges, k, 8, None, "ep", 0, (n_rows, n_cols)))
+
+
+def test_core_exports_the_reference_surface():
+    assert port_core.__all__ == ref_core.__all__
+    for name in port_core.__all__:
+        obj = getattr(port_core, name)
+        assert obj.__module__.startswith("repro_torch.core"), name
+
+
+def test_every_core_module_is_copied():
+    ref = {p.stem for p in (SRC / "repro" / "core").glob("*.py")} - {"__init__"}
+    port = {p.stem for p in (SRC / "repro_torch" / "core").glob("*.py")} - {"__init__"}
+    assert port == ref == set(COPIES)
 
 
 @pytest.mark.parametrize("name", COPIES)

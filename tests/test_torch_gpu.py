@@ -6,6 +6,7 @@ no JAX, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import importlib
+import importlib.util
 import re
 
 import numpy as np
@@ -375,11 +376,13 @@ def test_bf16_kernels_use_wgmma_and_tma(cuda_device):
         assert "HGMMA" in sass and "UTMALDG" in sass, name
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b", "mamba2-2.7b"])
 def test_reduced_model_on_card_matches_cpu(cuda_device, no_tf32, arch):
     """Same weights and prompt: the kernels on the card against the twins on
     the CPU, through prefill and three decode steps fed the CPU's tokens.
-    Float32 throughout; 1e-4 covers sums taken in other orders over 2 layers."""
+    Float32 throughout; 1e-4 covers sums taken in other orders over 2 layers.
+    The attention-free mamba2 launches no kernel (its prompt of 24 tokens
+    spans two SSD chunks of 16, the second padded)."""
     cfg = get_config(arch, reduced=True)
     cpu, card = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
     params = cpu.init(0)
@@ -396,6 +399,41 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, no_tf32, arch):
                                            {"tokens": tok.to(cuda_device)}, 24 + i)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     after = launch_counts()
-    assert after["flash_attention"] == before["flash_attention"] + cfg.n_layers
+    flash = cfg.n_layers if cfg.uses_attention else 0
+    assert after["flash_attention"] == before["flash_attention"] + flash
     if cfg.moe is not None:
         assert after["moe_mlp"] == before["moe_mlp"] + 4 * cfg.n_layers
+
+
+def _example(name):
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_on_card(cuda_device, capsys):
+    """The quickstart's software-cache SpMV runs the shared-memory kernel and
+    the combine on the card, within 1e-4 of the COO oracle."""
+    before = launch_counts()
+    err = _example("quickstart").main(["--device", "cuda"])
+    after = launch_counts()
+    assert err < 1e-4 and capsys.readouterr().out.rstrip().endswith("quickstart OK")
+    for name in ("spmv_software_cache", "ep_combine"):
+        assert after[name] == before[name] + 1, name
+
+
+def test_spmv_cg_on_card(cuda_device, capsys):
+    """CG behind the adaptive scheduler on the card; whichever SpMV served an
+    iteration, the residual is under 1e-3 within 60 iterations.  Each
+    optimized call launched the kernel and the combine once."""
+    before = launch_counts()
+    report = _example("spmv_cg").main(["--device", "cuda"])
+    after = launch_counts()
+    assert report["residual"] < 1e-3 and report["iterations"] <= 60
+    assert capsys.readouterr().out.rstrip().endswith("spmv_cg OK")
+    for name in ("spmv_software_cache", "ep_combine"):
+        assert after[name] - before[name] == report["optimized_calls"], name

@@ -1,8 +1,9 @@
 """The port's serving models on the CPU against the JAX package's.
 
 Reduced ``qwen3-moe-30b-a3b`` (MoE, qk_norm, GQA), ``qwen2-moe-a2.7b``
-(shared experts) and ``granite-3-8b`` (dense, tied embeddings) run with the
-JAX package's own initialised weights, carried across by
+(shared experts), ``granite-3-8b`` (dense, tied embeddings) and
+``mamba2-2.7b`` (attention-free SSM, conv and SSD states for a cache) run
+with the JAX package's own initialised weights, carried across by
 ``params_from_reference``; the JAX side runs on the CPU as its own tests run
 it.  Reduced configs compute in float32.  Tolerances: 1e-4 on logits (and
 1e-5 on MoE outputs, 1e-6 on the aux loss): float32 sums taken in another
@@ -34,7 +35,7 @@ from repro_torch.models.layers import apply_rope, decode_attention  # noqa: E402
 from repro_torch.models.moe import expert_positions, moe_ffn, route  # noqa: E402
 from repro_torch.models.transformer import cast_params_for_compute, moe_capacity  # noqa: E402
 
-ARCHS = ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "granite-3-8b"]
+ARCHS = ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "granite-3-8b", "mamba2-2.7b"]
 MOE_ARCHS = ARCHS[:2]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 _CACHE: dict = {}
@@ -63,8 +64,9 @@ def _t(a):
 def test_params_from_reference_carries_every_weight(arch):
     cfg, _, jp, port = _pair(arch)
     assert sum(p.numel() for p in port.parameters()) == param_count(cfg)["total"]
-    want = np.asarray(jp["blocks"]["attn"]["wq"][1])
-    assert np.array_equal(port.blocks[1].attn.wq.numpy(), want)
+    mixer, weight = ("mamba", "in_proj") if cfg.family == "ssm" else ("attn", "wq")
+    want = np.asarray(jp["blocks"][mixer][weight][1])
+    assert np.array_equal(port.blocks[1][mixer][weight].numpy(), want)
 
 
 def test_cast_params_for_compute_keeps_routing_f32():
@@ -158,8 +160,10 @@ def test_prefill_and_decode_match_reference(arch):
     model = Model(cfg, device="cpu")
     logits, cache = model.prefill(port, {"tokens": _t(toks)}, s + gen)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **LOGIT_TOL)
-    for name in ("k", "v"):
+    assert sorted(cache) == sorted(jcache)  # k/v, or conv/ssm for the ssm family
+    for name in cache:
         assert cache[name].shape == jcache[name].shape
+        assert str(cache[name].dtype).removeprefix("torch.") == str(jcache[name].dtype)
         np.testing.assert_allclose(cache[name].numpy(), np.asarray(jcache[name]),
                                    rtol=1e-5, atol=1e-5)
     step = jax.jit(lambda p, c, t, pos: jm.decode_step(p, c, {"tokens": t}, pos))
@@ -222,7 +226,7 @@ def test_compute_copies_are_cast_once_and_never_stale(arch):
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("mamba2-2.7b", "ssm"), ("jamba-1.5-large-398b", "hybrid"),
+    ("jamba-1.5-large-398b", "hybrid"),
     ("seamless-m4t-medium", "encdec"), ("qwen2-vl-2b", "M-RoPE"),
 ])
 def test_unported_configs_raise_naming_them(arch, what):

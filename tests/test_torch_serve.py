@@ -35,7 +35,8 @@ from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.runtime import GraphRequest, GraphServer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 class TestDrivers:
@@ -86,12 +87,26 @@ class TestDrivers:
                            jnp.asarray(x))
         np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
-    @pytest.mark.parametrize("flag", ["--arch mamba2-2.7b"])
+    @pytest.mark.parametrize("flag", ["--arch jamba-1.5-large-398b"])
     def test_unported_modes_are_named(self, flag, capsys):
         with pytest.raises(SystemExit) as exc:
             port_serve.main(["--graph", *flag.split()])
         assert exc.value.code == 2
         assert "not ported yet" in capsys.readouterr().err
+
+    @pytest.mark.parametrize("argv", ["--arch mamba2-2.7b", "--arch mamba2-2.7b --reduced"])
+    def test_ssm_arch_reaches_run_serving(self, argv, monkeypatch, capsys):
+        calls = []
+
+        def fake(arch, **kw):
+            calls.append((arch, kw))
+            return torch.zeros((kw["batch"], kw["gen"]), dtype=torch.int32), {}
+
+        monkeypatch.setattr(port_serve, "run_serving", fake)
+        assert port_serve.main(argv.split()) == 0
+        assert calls == [("mamba2-2.7b", {"batch": 4, "prompt_len": 32, "gen": 16,
+                                          "reduced": "--reduced" in argv})]
+        assert "generated (4, 16) tokens" in capsys.readouterr().out
 
     @pytest.mark.parametrize("argv, driver, want", [
         ("--tenants 3", "run_multitenant_graph_serving",
