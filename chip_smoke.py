@@ -86,12 +86,36 @@ step are profiled as the LM's are (``ssm_profile``), and ``lm_checks`` also
 holds reduced mamba2 card against CPU and mamba2 at full width, 2 layers,
 against teacher forcing over a prompt of 300 (two SSD chunks, padded).
 
+The hybrid, M-RoPE and encoder-decoder paths, each at its published widths
+through ``serve_config`` with B = 4 prompts of 2,048 tokens and 32 greedy
+tokens, counts set to 0 just before each and read just after:
+``hybrid_serving`` serves jamba-1.5-large-398b's layers 0-4 (four Mamba
+layers with MLP, MoE, MLP, MoE FFNs, then attention with an MLP) as one
+period of five, 23,992,172,544 bf16 parameters (a whole period of eight
+would be 90.3 GB): flash once, the expert FFN in both MoE layers at every
+step; ``mrope_serving`` serves qwen2-vl-2b's 28 layers behind the vision
+stub (embeddings and M-RoPE positions): flash once a layer;
+``encdec_serving`` serves seamless-m4t-medium's 12 + 12 layers behind the
+audio stub: flash in each encoder layer and twice in each decoder layer
+(self- and cross-attention) at prefill.  Each prints its cast, prefill and
+decode times, tokens/s and peak memory, and is profiled as the LM is
+(``*_profile``); every profile line also holds the path's bounds
+(``_serving_bounds``, with the experts the served decode steps read
+counted from their recorded routing).  ``zoo_kernels`` holds flash and the
+expert FFN against their twins at the new shapes (jamba's prefill and
+routed decode slab; flash at jamba's, qwen2-vl's group of 6 and
+seamless's Dh 64 causal and non-causal shapes) and times them beside their
+bounds and library calls; each such shape's launches are those of the path
+that runs it.  ``lm_checks`` also holds the three reduced models card
+against CPU and each at full width against teacher forcing.
+
 The ``examples`` phase runs the port's three examples through their
 ``main(["--device", "cuda"])``: the quickstart (EP-SpMV within 1e-4 of the
 COO oracle, through the software-cache kernel and the combine), CG behind
 the adaptive scheduler (residual under 1e-3; the kernel runs on the
 iterations the scheduler gives it), and serve_lm with its default reduced
-granite-3-8b (flash attention) and with reduced mamba2-2.7b.
+granite-3-8b (flash attention), with reduced mamba2-2.7b and with reduced
+jamba-1.5-large-398b.
 
 The build phase also counts the HGMMA (wgmma) and UTMALDG (TMA load)
 instructions in each kernel of the flash-attention and expert-FFN libraries,
@@ -152,16 +176,32 @@ REPLICATED = {"replicas": 2, "transport": "process", "mode": "streaming", "matri
               "requests": 12, "kill_after": 4, "heartbeat_deadline_s": HEARTBEAT_DEADLINE_S}
 OVERLOAD = {"queue_bound": 4, "flood_clients": 6, "flood_requests_each": 4,
             "victim_rounds": 10, "stall_s": 0.03, "heartbeat_deadline_s": HEARTBEAT_DEADLINE_S}
-# LM serving: qwen3-moe-30b-a3b at its published widths, 8 of its 48 layers;
-# (batch, prompt tokens, generated tokens).
-LM_ARCH, LM_LAYERS = "qwen3-moe-30b-a3b", 8
+# The LM serving paths, each at its published widths: path -> (arch, changes
+# to its config, (batch, prompt tokens, generated tokens)).  qwen3-moe-30b-a3b
+# is cut to 8 of its 48 layers (its 48 layers' f32 masters take 122 GB);
+# mamba2-2.7b, qwen2-vl-2b and seamless-m4t-medium are served whole.
+# jamba-1.5-large's whole period of 8 layers is 45.14 B parameters, 90.3 GB of
+# bf16, more than one card holds: the hybrid path serves layers 0-4 of the
+# published stack (Mamba x4, then attention at its published offset 4; FFNs
+# MLP, MoE, MLP, MoE, MLP) as one period of five, 23,992,172,544 parameters.
+LM_ARCH, SSM_ARCH = "qwen3-moe-30b-a3b", "mamba2-2.7b"
+HYBRID_ARCH, MROPE_ARCH, ENCDEC_ARCH = "jamba-1.5-large-398b", "qwen2-vl-2b", "seamless-m4t-medium"
 LM_TRAFFIC = (4, 2048, 32)
-# SSM serving: mamba2-2.7b at its published widths and all 64 layers.
-SSM_ARCH = "mamba2-2.7b"
-SSM_TRAFFIC = (4, 2048, 32)
+LM_PATHS = {"lm_serving": (LM_ARCH, {"n_layers": 8}, LM_TRAFFIC),
+            "ssm_serving": (SSM_ARCH, {}, LM_TRAFFIC),
+            "hybrid_serving": (HYBRID_ARCH, {"n_layers": 5, "attn_every": 5}, LM_TRAFFIC),
+            "mrope_serving": (MROPE_ARCH, {}, LM_TRAFFIC),
+            "encdec_serving": (ENCDEC_ARCH, {}, LM_TRAFFIC)}
+HYBRID_PARAMS = 23_992_172_544  # the hybrid cut, as param_count counts it
 # Teacher forcing of mamba2 at full width: a prompt that crosses the SSD
 # chunk of 256 and is padded to two chunks.
 SSM_TF_PROMPT = 300
+# Teacher forcing of jamba at full width in float32: a period of two (a Mamba
+# layer with its MLP, then attention with MoE) with 4 of the 16 experts,
+# 4,651,657,216 parameters (18.6 GB).
+JAMBA_TF = {"n_layers": 2, "attn_every": 2, "attn_offset": 1, "param_dtype": "float32",
+            "compute_dtype": "float32"}
+JAMBA_TF_EXPERTS = {"n_experts": 4, "capacity_factor": 16.0}
 DEVICE = "cuda"
 SPMV_KERNELS = ("spmv_software_cache", "spmv_streaming", "spmv_streaming_batched", "ep_combine")
 # The kernels each serving phase after ``batched`` must launch: the bucketed
@@ -686,51 +726,80 @@ def phase_kernels(plan, big, batched_plans, launches):
 # ---------------------------------------------------------------------------
 
 
-def phase_lm_serving():
-    """The port's run_serving path at full width, launches counted.
+def phase_serving(path):
+    """One LM serving path of ``LM_PATHS`` through ``serve_config`` (what
+    ``run_serving`` hands a resolved config to), launches counted.
 
-    Drives ``serve_config`` (what ``run_serving`` hands a resolved config to)
-    with qwen3-moe-30b-a3b cut to LM_LAYERS layers: f32 master weights drawn
-    on the card from seed 0, bf16 compute copies (router f32) cast once before
-    the prompts (``cast_ms``), a batch of seeded prompts, prefill, then greedy
-    decode.  Counts are set to 0 just
-    before and read just after: flash attention runs once per layer in
-    prefill, the expert FFN once per layer in prefill and in every decode
-    step.
+    Weights drawn on the card from seed 0 (f32 masters and bf16 compute
+    copies, routers and SSD rates kept f32, cast once before the prompts:
+    ``cast_ms``; jamba's masters are bf16 as published, so its copies are the
+    masters), a batch of seeded prompts behind the config's front-end stub,
+    prefill, then greedy decode.  ``lm_serving``: qwen3-moe-30b-a3b (d_model
+    2,048, 32 / 4 heads of 128, 128 experts top-8 of 768, vocab 151,936), 8
+    layers.  ``ssm_serving``: mamba2-2.7b whole (64 layers, d_model 2,560,
+    80 SSD heads of 64, d_state 128, chunk 256, vocab 50,280).
+    ``hybrid_serving``: jamba-1.5-large (d_model 8,192; 64 / 8 heads of 128;
+    d_ff 24,576; 16 experts top-2 of 24,576; SSD d_inner 16,384 in 256 heads
+    of 64; vocab 65,536), layers 0-4 as one period of five.
+    ``mrope_serving``: qwen2-vl-2b whole (28 layers), behind the vision stub
+    (embeddings, M-RoPE positions).  ``encdec_serving``: seamless-m4t-medium
+    whole (12 + 12 layers), behind the audio stub (the encoder's frames, the
+    decoder's tokens).  Counts are set to 0 just before and read just after,
+    and must equal :func:`_expected_launches`; the parameters must number
+    what the config counts.  The expert ids each MoE layer routed to are
+    recorded (``recorded_routing``), and the experts each served decode step
+    read are returned, step by step and MoE layer by MoE layer.
     """
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, param_count
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import serve_config
+    from repro_torch.models.moe import recorded_routing
     from repro_torch.models.transformer import moe_capacity
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
-    b, s, gen = LM_TRAFFIC
+    arch, changes, (b, s, gen) = LM_PATHS[path]
+    cfg = dataclasses.replace(get_config(arch), **changes)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    tokens, stats, state = serve_config(cfg, b, s, gen, seed=0)
+    with recorded_routing() as routed:
+        tokens, stats, state = serve_config(cfg, b, s, gen, seed=0)
     launches = launch_counts()
-    want = {"flash_attention": cfg.n_layers, "moe_mlp": cfg.n_layers * gen}
-    for name in launches:
-        if launches[name] != want.get(name, 0):
-            raise AssertionError(f"lm_serving launches {launches}, expected {want}")
+    n_moe = cfg.ffn_kinds().count("moe")
+    if len(routed) != n_moe * gen:
+        raise AssertionError(f"{path}: {len(routed)} routings, expected {n_moe} a step")
+    experts_read = [[int(torch.unique(ids).numel()) for ids in routed[i:i + n_moe]]
+                    for i in range(n_moe, len(routed), n_moe)] if n_moe else []  # decode steps
+    del routed
+    want = _expected_launches(cfg, gen)
+    if any(launches[name] != want.get(name, 0) for name in launches):
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
     if (tuple(tokens.shape) != (b, gen) or int(tokens.min()) < 0
             or int(tokens.max()) >= cfg.vocab_size):
-        raise AssertionError(f"lm_serving tokens {tuple(tokens.shape)} out of range")
+        raise AssertionError(f"{path} tokens {tuple(tokens.shape)} out of range")
     n_params = sum(p.numel() for p in state["params"].parameters())
-    _emit({"phase": "lm_serving", "arch": cfg.name, "layers": cfg.n_layers,
-           "of_layers": get_config(LM_ARCH).n_layers, "params": n_params,
+    # param_count (copied verbatim from the reference) leaves out encdec's
+    # enc_final_norm, d_model weights.
+    counted = param_count(cfg)["total"] + (cfg.d_model if cfg.family == "encdec" else 0)
+    if n_params != counted or (path == "hybrid_serving" and n_params != HYBRID_PARAMS):
+        raise AssertionError(f"{path}: {n_params} parameters, the config counts {counted}")
+    capacity = cfg.moe and {"prefill": moe_capacity(cfg, b * s), "decode": moe_capacity(cfg, b)}
+    _emit({"phase": path, "arch": cfg.name, "layers": cfg.n_layers,
+           "of_layers": get_config(arch).n_layers, "encoder_layers": cfg.n_encoder_layers,
+           "layer_kinds": cfg.layer_kinds(), "ffn_kinds": cfg.ffn_kinds(),
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "ssm": cfg.ssm and dataclasses.asdict(cfg.ssm), "capacity": capacity,
+           "params": n_params, "param_dtype": cfg.param_dtype,
+           "inputs": {k: list(v.shape) for k, v in state["inputs"].items()},
            "batch": b, "prompt_len": s, "gen": gen,
-           "capacity": {"prefill": moe_capacity(cfg, b * s), "decode": moe_capacity(cfg, b)},
            "cast_ms": stats["cast_s"] * 1e3, "prefill_ms": stats["prefill_s"] * 1e3,
            "decode_ms_per_token": stats["decode_s"] * 1e3 / (gen - 1),
            "tok_per_s": stats["tok_per_s"], "launches": launches,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "tokens_head": tokens[0, :8].tolist()})
-    return cfg, state, launches
+    return cfg, state, launches, experts_read
 
 
 def bf16_scaled_err(got, want) -> float:
@@ -783,6 +852,92 @@ def _kernel_entry(name, replaces, source, launches, run, plain, library, nbytes,
             "bytes": nbytes, "flops": flops, "shapes": shapes}
 
 
+def _randn(gen, shape, dtype=None, scale=1.0):
+    """Seeded normal values drawn on the card (bf16 unless ``dtype``)."""
+    import torch
+
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(
+        dtype or torch.bfloat16)
+
+
+def _flash_entry(q, k, v, causal, launches, iters=20, **library_kw):
+    """flash_attention on ``q (B, H, S, Dh)`` over un-repeated ``k, v (B, Hkv,
+    T, Dh)`` against its twin, timed.  Bound: the two products over the
+    pairs it must compute (i >= j when causal) on the tensor cores; q, k, v
+    read and o written once.  Library: SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    b, h, s, dh = q.shape
+    t = k.shape[2]
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    return _kernel_entry(
+        "flash_attention", "src/repro/kernels/flash_attention.py:77",
+        "src/repro_torch/kernels/csrc/flash_attention.cu", launches,
+        lambda: flash_attention(q, k, v, causal=causal),
+        lambda: flash_attention_ref(q, k, v, causal),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, **library_kw),
+        2 * (q.numel() + k.numel() + v.numel() + q.numel()), 4 * b * h * dh * pairs,
+        {"B": b, "H": h, "Hkv": k.shape[1], "S": s, "T": t, "Dh": dh, "causal": causal},
+        tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=iters)
+
+
+def _moe_entry(x, wg, wu, wd, launches, iters, experts=None, rows=None, twin_chunk=None):
+    """moe_mlp on the slab ``x (E, C, D)`` against its twin, timed.  Bound:
+    three products per slab row that holds a token (``rows``, all E * C by
+    default) on the tensor cores; x read, the output written and the weights
+    of every expert that has to be computed (``experts``, all E by default)
+    read once.  Library: three ``bmm`` and a SiLU.  ``twin_chunk`` runs the
+    twin (which upcasts every weight to float32) that many experts at a time,
+    where the whole upcast would not fit beside the model."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_mlp
+    from repro_torch.kernels.ref import moe_mlp_ref
+
+    e, cap, d = x.shape
+    f = wg.shape[-1]
+    experts = e if experts is None else experts
+    rows = e * cap if rows is None else rows
+    step = twin_chunk or e
+
+    def plain():
+        return torch.cat([moe_mlp_ref(x[i:i + step], wg[i:i + step], wu[i:i + step],
+                                      wd[i:i + step]) for i in range(0, e, step)])
+
+    def library():
+        return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+
+    return _kernel_entry(
+        "moe_mlp", "src/repro/kernels/moe_mlp.py:37",
+        "src/repro_torch/kernels/csrc/moe_mlp.cu", launches,
+        lambda: moe_mlp(x, wg, wu, wd), plain, library,
+        2 * (2 * e * cap * d + 3 * experts * d * f), 6 * rows * d * f,
+        {"E": e, "C": cap, "D": d, "F": f, "experts_computed": experts, "rows": rows},
+        tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=iters)
+
+
+def _routed_decode_entry(moe, cfg, b, gen, launches, twin_chunk=None):
+    """moe_mlp on a decode slab routed as moe_ffn routes it: ``b`` tokens
+    through ``moe``'s router, dispatched at the decode capacity; the bound
+    counts only the experts that hold a pair."""
+    import torch
+
+    from repro_torch.models.moe import dispatch, route
+    from repro_torch.models.transformer import moe_capacity
+
+    e = moe.w_gate.shape[0]
+    tokens = _randn(gen, (b, moe.w_gate.shape[1]), moe.w_gate.dtype)
+    _, _, ids = route(tokens, moe.router, cfg.moe.top_k)
+    slab, _, keep = dispatch(tokens, ids, e, moe_capacity(cfg, b))
+    occupied = int(torch.unique(ids).numel())
+    return _moe_entry(slab, moe.w_gate, moe.w_up, moe.w_down, launches, 20,
+                      experts=occupied, rows=int(keep.sum()), twin_chunk=twin_chunk), occupied
+
+
 def phase_lm_kernels(cfg, state, launches):
     """flash_attention and moe_mlp at the lm_serving shapes, bf16, against
     their twins (5e-2, and 1e-2 |want| + 5e-2 rms(row) elementwise), timed beside their
@@ -797,77 +952,42 @@ def phase_lm_kernels(cfg, state, launches):
     (``decode_routed``), whose bound counts only the experts that hold a pair.
     """
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, moe_mlp
     from repro_torch.kernels.ref import flash_attention_ref, moe_mlp_ref
-    from repro_torch.models.moe import dispatch, route
     from repro_torch.models.transformer import moe_capacity
 
     dev = torch.device(DEVICE)
-    b, s, _ = LM_TRAFFIC
+    b, s, _ = LM_PATHS["lm_serving"][2]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     gen = torch.Generator(device=dev).manual_seed(7)
 
     def randn(shape, dtype=torch.bfloat16, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+        return _randn(gen, shape, dtype, scale)
 
     entries = []
-    # Prefill attention, bf16, causal.  The two products over the causal
-    # pairs (i >= j) on the tensor cores; q, k, v read and o written once.
-    pairs = s * (s + 1) // 2
-
-    def flash_entry(q, k, v, **library_kw):
-        return _kernel_entry(
-            "flash_attention", "src/repro/kernels/flash_attention.py:77",
-            "src/repro_torch/kernels/csrc/flash_attention.cu", launches["flash_attention"],
-            lambda: flash_attention(q, k, v, causal=True),
-            lambda: flash_attention_ref(q, k, v, True),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, **library_kw),
-            2 * (q.numel() + k.numel()) * 2, 4 * b * h * dh * pairs,
-            {"B": b, "H": h, "Hkv": k.shape[1], "S": s, "T": s, "Dh": dh, "causal": True},
-            tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=20)
-
     q, k, v = randn((b, h, s, dh)), randn((b, hkv, s, dh)), randn((b, hkv, s, dh))
-    flash = flash_entry(q, k, v, enable_gqa=True)
+    flash = _flash_entry(q, k, v, True, launches["flash_attention"], enable_gqa=True)
     g = h // hkv
-    flash["head_repeated"] = flash_entry(q, k.repeat_interleave(g, 1).contiguous(),
-                                         v.repeat_interleave(g, 1).contiguous())
+    flash["head_repeated"] = _flash_entry(q, k.repeat_interleave(g, 1).contiguous(),
+                                          v.repeat_interleave(g, 1).contiguous(), True,
+                                          launches["flash_attention"])
+    flash["head_repeated"]["path"] = None  # the reference's layout; no path runs it
     entries.append(flash)
     del q, k, v
 
-    # The expert FFN on layer 0's bf16 expert weights: three products per
-    # slab row that holds a token; x read, the output written and the
-    # weights of every expert that has to be computed read once.
+    # The expert FFN on layer 0's bf16 expert weights.
     moe = state["compute"].blocks[0].ffn.moe
     wg, wu, wd = moe.w_gate, moe.w_up, moe.w_down
     e, d, f = wg.shape
-
-    def moe_entry(x, iters, experts=e, rows=None):
-        cap = x.shape[1]
-        rows = e * cap if rows is None else rows
-
-        def library():
-            return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
-
-        return _kernel_entry(
-            "moe_mlp", "src/repro/kernels/moe_mlp.py:37",
-            "src/repro_torch/kernels/csrc/moe_mlp.cu", launches["moe_mlp"],
-            lambda: moe_mlp(x, wg, wu, wd), lambda: moe_mlp_ref(x, wg, wu, wd), library,
-            2 * (2 * e * cap * d + 3 * experts * d * f), 6 * rows * d * f,
-            {"E": e, "C": cap, "D": d, "F": f, "experts_computed": experts, "rows": rows},
-            tol=BF16_TOL, peak_flops=BF16_FLOPS, iters=iters)
-
-    prefill = moe_entry(randn((e, moe_capacity(cfg, b * s), d), wg.dtype), 10)
-    cap = moe_capacity(cfg, b)
-    prefill["decode"] = moe_entry(randn((e, cap, d), wg.dtype), 20)
-    tokens = randn((b, d), wg.dtype)
-    _, _, ids = route(tokens, moe.router, cfg.moe.top_k)
-    slab, _, keep = dispatch(tokens, ids, e, cap)
-    occupied = int(torch.unique(ids).numel())
-    routed = moe_entry(slab, 20, experts=occupied, rows=int(keep.sum()))
+    n = launches["moe_mlp"]
+    prefill = _moe_entry(randn((e, moe_capacity(cfg, b * s), d), wg.dtype), wg, wu, wd, n, 10)
+    prefill["decode"] = _moe_entry(randn((e, moe_capacity(cfg, b), d), wg.dtype), wg, wu, wd,
+                                   n, 20)
+    routed, occupied = _routed_decode_entry(moe, cfg, b, gen, n)
     routed["bound_all_experts_ms"] = prefill["decode"]["bound_ms"]
     prefill["decode_routed"] = routed
+    prefill["decode"]["path"] = routed["path"] = "lm_serving"
     entries.append(prefill)
 
     # float32 at smaller shapes, no TF32 in the twins' products.
@@ -902,30 +1022,33 @@ def phase_lm_kernels(cfg, state, launches):
     return entries
 
 
-def phase_lm_profile(cfg, state, traffic=LM_TRAFFIC, phase="lm_profile"):
-    """Where a warm prefill and a warm decode step spend their time.
+def phase_lm_profile(cfg, state, path, experts_read):
+    """Where a warm prefill and a warm decode step of ``path`` spend their time.
 
     Wall time on the host clock (ending in a synchronize), and the device's
     busy time by kernel from torch.profiler, whose ratio to the wall time
     gives the device's idle share.  The warm prefill's logits are checked
-    for shape and finiteness.
+    for shape and finiteness.  The line also holds :func:`_serving_bounds`,
+    whose decode bound counts the experts the served decode steps read
+    (``experts_read``, from :func:`phase_serving`).
     """
     import time as _time
 
     import torch
 
-    model, params, prompt = state["model"], state["compute"], state["prompt"]
-    b, s, gen = traffic
+    model, params, inputs = state["model"], state["compute"], state["inputs"]
+    b, s, gen = LM_PATHS[path][2]
+    phase = path.replace("serving", "profile")
     out = {"phase": phase}
     cache = None
 
     def prefill():
         nonlocal cache
-        logits, cache = model.prefill(params, {"tokens": prompt}, s + gen)
+        logits, cache = model.prefill(params, inputs, s + gen)
         return logits
 
     def decode():
-        tok = torch.zeros((b, 1), dtype=torch.long, device=prompt.device)
+        tok = torch.zeros((b, 1), dtype=torch.long, device=state["prompt"].device)
         return model.decode_step(params, cache, {"tokens": tok}, s)[0]
 
     for name, fn in (("prefill", prefill), ("decode_step", decode)):
@@ -942,19 +1065,39 @@ def phase_lm_profile(cfg, state, traffic=LM_TRAFFIC, phase="lm_profile"):
                      "idle_share": 1.0 - busy / wall_ms, "kernels_ms": ours,
                      "device_kernels": len(device),
                      "device_top": sorted(device.items(), key=lambda kv: -kv[1])[:12]}
+    out["bounds"] = _serving_bounds(cfg, b, s, experts_read)
     _emit(out)
+
+
+def mrope_grid_streams(s):
+    """Three different M-RoPE position streams over ``s`` tokens (t
+    constant, h = i // 8, w = i % 8).  With equal streams M-RoPE is plain
+    RoPE, and a wrong section split would not show."""
+    import torch
+
+    i = torch.arange(s)
+    return torch.stack([0 * i, i // 8, i % 8])
 
 
 def phase_lm_checks():
     """The model end to end, float32, against the twins and against itself.
 
-    (1) Reduced qwen3-moe-30b-a3b, granite-3-8b and mamba2-2.7b: the same
-    weights (drawn on the CPU) and prompt through prefill and three decode
-    steps, fed the CPU's tokens, on the card (kernels) and on the CPU
-    (twins).  (2) Teacher forcing at qwen3-moe-30b-a3b's full width, 2
-    layers, B = 2, S = 256, capacity factor 16 (nothing dropped), and at
-    mamba2-2.7b's full width, 2 layers, B = 2, S = SSM_TF_PROMPT: prefill(S)
-    then decode of token S equals prefill(S + 1)'s last logits.
+    (1) Reduced qwen3-moe-30b-a3b, granite-3-8b, mamba2-2.7b,
+    jamba-1.5-large-398b (two periods of four), qwen2-vl-2b (embeddings and
+    :func:`mrope_grid_streams`) and seamless-m4t-medium (an encoder input
+    13 frames longer than the prompt), batches from ``prefill_inputs``: the
+    same weights (drawn on the CPU) and prompt through prefill and three
+    decode steps, fed the CPU's tokens, on the card (kernels) and on the
+    CPU (twins).  (2) Teacher forcing at full
+    width, B = 2: prefill(S) then decode of token S equals prefill(S + 1)'s
+    last logits, for qwen3-moe-30b-a3b (2 layers, S = 256, capacity factor
+    16: nothing dropped), mamba2-2.7b (2 layers, S = SSM_TF_PROMPT),
+    jamba-1.5-large-398b (JAMBA_TF: a period of two, a Mamba layer with its
+    MLP then attention with MoE, 4 of the 16 experts; the served cut in
+    float32 would take 96 GB, so a smaller float32 stack stands in for it;
+    S = 300 crosses an SSD chunk), qwen2-vl-2b (2 layers, S = 256, M-RoPE
+    streams all equal, as decode puts them at ``pos``) and
+    seamless-m4t-medium (2 + 2 layers, S = 256, an encoder input of 300).
     """
     import dataclasses
 
@@ -962,6 +1105,7 @@ def phase_lm_checks():
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prefill_inputs
     from repro_torch.models import Model
 
     dev = torch.device(DEVICE)
@@ -969,14 +1113,18 @@ def phase_lm_checks():
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     out = {"phase": "lm_checks", "tf32": False, "tol": {"card_vs_cpu": E2E_TOL,
                                                        "teacher_forcing": TF_TOL}}
-    for arch in (LM_ARCH, "granite-3-8b", SSM_ARCH):
+    for arch in (LM_ARCH, "granite-3-8b", SSM_ARCH, HYBRID_ARCH, MROPE_ARCH, ENCDEC_ARCH):
         cfg = get_config(arch, reduced=True)
         cpu, card = Model(cfg, device="cpu"), Model(cfg, device=dev)
         params = cpu.init(0)
         params_card = params.map(lambda _, w: w.to(dev))
-        tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (2, 24)))
-        want, cache = cpu.prefill(params, {"tokens": tokens}, 27)
-        got, cache_card = card.prefill(params_card, {"tokens": tokens.to(dev)}, 27)
+        rng = np.random.default_rng(0)
+        prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 24)))
+        inputs = prefill_inputs(cfg, prompt, rng, positions3=mrope_grid_streams(24),
+                                enc_len=24 + 13)
+        want, cache = cpu.prefill(params, inputs, 27)
+        got, cache_card = card.prefill(params_card, {k: v.to(dev) for k, v in inputs.items()},
+                                       27)
         errs = [(got.cpu() - want).abs().max().item()]
         for i in range(3):
             tok = torch.argmax(want, -1)[:, None]
@@ -988,20 +1136,30 @@ def phase_lm_checks():
             raise AssertionError(f"{arch} reduced: card vs CPU logits differ by {errs}")
         out[f"{arch}_reduced_max_abs_err"] = errs
 
-    def teacher_forcing(cfg, s):
+    def teacher_forcing(cfg, s, enc_len=0):
         model = Model(cfg, device=dev)
         params = model.init(1)
-        tokens = torch.from_numpy(
-            np.random.default_rng(1).integers(2, cfg.vocab_size, (2, s + 1))).to(dev)
-        whole, _ = model.prefill(params, {"tokens": tokens}, s + 1)
-        _, cache = model.prefill(params, {"tokens": tokens[:, :s]}, s + 1)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, s + 1))).to(dev)
+        whole, prefix = {"tokens": tokens}, {"tokens": tokens[:, :s]}
+        if cfg.mrope:
+            p3 = torch.arange(s + 1, dtype=torch.int32, device=dev).expand(3, 2, s + 1)
+            whole["positions3"], prefix["positions3"] = p3, p3[..., :s]
+        if enc_len:
+            whole["enc_embeds"] = prefix["enc_embeds"] = torch.from_numpy(
+                rng.standard_normal((2, enc_len, cfg.d_model)).astype(np.float32)).to(dev)
+        full, _ = model.prefill(params, whole, s + 1)
+        _, cache = model.prefill(params, prefix, s + 1)
         step, _ = model.decode_step(params, cache, {"tokens": tokens[:, s:]}, s)
-        err = (step - whole).abs().max().item()
+        err = (step - full).abs().max().item()
         if not torch.isfinite(step).all() or err > TF_TOL:
             raise AssertionError(f"{cfg.name}: teacher forcing at full width: logits differ "
                                  f"by {err}")
+        n_params = sum(p.numel() for p in params.parameters())
+        del model, params, cache
+        torch.cuda.empty_cache()
         return {"layers": cfg.n_layers, "batch": 2, "prompt": s, "max_abs_err": err,
-                "logit_abs_max": whole.abs().max().item()}
+                "logit_abs_max": full.abs().max().item(), "params": n_params}
 
     full = get_config(LM_ARCH)
     out["teacher_forcing"] = teacher_forcing(
@@ -1010,90 +1168,170 @@ def phase_lm_checks():
     ssm = dataclasses.replace(get_config(SSM_ARCH), n_layers=2, compute_dtype="float32")
     out["teacher_forcing_ssm"] = {**teacher_forcing(ssm, SSM_TF_PROMPT),
                                   "chunk": ssm.ssm.chunk}
+    jamba = get_config(HYBRID_ARCH)
+    out["teacher_forcing_hybrid"] = teacher_forcing(dataclasses.replace(
+        jamba, **JAMBA_TF, moe=dataclasses.replace(jamba.moe, **JAMBA_TF_EXPERTS)), 300)
+    out["teacher_forcing_mrope"] = teacher_forcing(
+        dataclasses.replace(get_config(MROPE_ARCH), n_layers=2, compute_dtype="float32"), 256)
+    out["teacher_forcing_encdec"] = teacher_forcing(
+        dataclasses.replace(get_config(ENCDEC_ARCH), n_layers=2, n_encoder_layers=2,
+                            compute_dtype="float32"), 256, enc_len=300)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     _emit(out)
 
 
 # ---------------------------------------------------------------------------
-# SSM serving: prefill + greedy decode of mamba2-2.7b, and the examples
+# The hybrid, M-RoPE and encoder-decoder paths
 # ---------------------------------------------------------------------------
 
 
-def _ssm_bounds(cfg, b, s):
-    """The least time a mamba2 prefill and a decode step could take here.
+def _expected_launches(cfg, gen) -> dict:
+    """Kernel launches of one request of ``gen`` tokens: flash attention in
+    every attention layer of the prefill (for ``encdec`` also in each encoder
+    layer and each decoder layer's cross-attention; decode attention is plain
+    PyTorch), the expert FFN in every MoE layer of the prefill and of each of
+    the ``gen - 1`` decode steps."""
+    flash = cfg.layer_kinds().count("attn")
+    if cfg.family == "encdec":
+        flash += cfg.n_encoder_layers + cfg.n_layers
+    return {"flash_attention": flash, "moe_mlp": cfg.ffn_kinds().count("moe") * gen}
 
-    Prefill: the projections' bf16 products over the tensor-core rate plus
-    the chunked SSD's products, which the reference sums in float32, over
-    the float32 rate.  Decode: every bf16 weight read once over the memory
-    rate (the few float32 leaves are counted at 2 bytes too).
-    """
-    from repro_torch.configs import param_count
 
+def _ssd_flops(cfg, b, s, layers):
+    """The products of ``layers`` Mamba2 layers over ``b`` prompts of ``s``
+    tokens: the projections' (bf16) and the chunked SSD's (float32, as the
+    reference sums them)."""
     m = cfg.ssm
     d, di = cfg.d_model, m.expand * cfg.d_model
     h, p, n, g, chunk = di // m.head_dim, m.head_dim, m.d_state, m.n_groups, m.chunk
-    d_in_proj = 2 * di + 2 * g * n + h
     nc = -(-s // chunk)
-    proj = 2 * b * s * (d * d_in_proj + di * d) * cfg.n_layers
+    proj = 2 * b * s * (d * (2 * di + 2 * g * n + h) + di * d) * layers
     # C·Bᵀ per chunk, the decayed scores against x, the end states, the off-diagonal term.
     ssd = 2 * b * nc * (g * chunk * chunk * n + h * chunk * chunk * p
-                        + 2 * h * p * n * chunk) * cfg.n_layers
-    weight_bytes = 2 * param_count(cfg)["total"]
-    return {"prefill_bf16_flops": proj, "prefill_f32_flops": ssd,
-            "prefill_bound_ms": (proj / BF16_FLOPS + ssd / F32_FLOPS) * 1e3,
-            "decode_weight_bytes": weight_bytes,
-            "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+                        + 2 * h * p * n * chunk) * layers
+    return proj, ssd
 
 
-def phase_ssm_serving():
-    """The port's run_serving path for the ssm family at full width and depth.
+def _serving_bounds(cfg, b, s, experts_read):
+    """The least time a prefill of ``b`` prompts of ``s`` tokens and a decode
+    step could take here.
 
-    Drives ``serve_config`` with mamba2-2.7b as published: f32 master
-    weights drawn on the card from seed 0, bf16 compute copies (dt_bias,
-    A_log and D kept f32) cast once before the prompts, prefill through the
-    chunked SSD, then greedy decode through the recurrent step.  Counts are
-    set to 0 just before and read just after: the path has no attention and
-    no experts, so no kernel may have launched.
+    Prefill: the bf16 products over the tensor-core rate (projections, MLPs,
+    each token's top_k experts, the attention products over the pairs
+    attended: causal self-attention, the encoder's and the cross-attention's
+    S x S, and the last position's logits) plus the chunked SSD's products
+    and the routers, which the reference sums in float32, over the float32
+    rate.  Decode: the bytes a step must move, each once, over the memory
+    rate: the bf16 weights it reads (B rows of an untied embedding table; of
+    the experts, those that held a pair: ``experts_read[step][layer]`` over
+    the served decode steps, whose mean the bound counts), the K/V prefix
+    it attends (and the cross-attention's cache), and the SSD states it
+    reads and writes in float32.
     """
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    n_mlp, n_moe, n_enc = ffns.count("mlp"), ffns.count("moe"), cfg.n_encoder_layers
+    tokens = b * s
+    attn_w, mlp_w = 2 * d * (hq + hkv) * dh, 3 * d * cfg.d_ff
+    bf16 = (2 * tokens * (n_attn * attn_w + n_mlp * mlp_w)
+            + 4 * b * hq * dh * (s * (s + 1) // 2) * n_attn + 2 * b * d * cfg.vocab_size)
+    f32 = 0
+    read = n_attn * attn_w + n_mlp * mlp_w + d * cfg.vocab_size
+    if not cfg.tie_embeddings:
+        read += b * d
+    cache_bytes = 2 * n_attn * 2 * b * (s + 1) * hkv * dh
+    if n_mamba:
+        m = cfg.ssm
+        proj, ssd = _ssd_flops(cfg, b, s, n_mamba)
+        bf16, f32 = bf16 + proj, f32 + ssd
+        di = m.expand * d
+        read += n_mamba * (d * (2 * di + 2 * m.n_groups * m.d_state + di // m.head_dim) + di * d)
+        cache_bytes += n_mamba * 2 * 4 * b * di * m.d_state
+    if n_moe:
+        e = cfg.moe
+        expert_w = 3 * d * e.d_ff_expert
+        bf16 += 2 * tokens * e.top_k * expert_w * n_moe
+        f32 += 2 * tokens * d * e.n_experts * n_moe
+        per_step = [sum(step) for step in experts_read]
+        read += sum(per_step) / len(per_step) * expert_w + n_moe * d * e.n_experts
+    if cfg.family == "encdec":  # the encoder and the cross-attention, over S frames
+        bf16 += (2 * tokens * (n_enc * (attn_w + mlp_w) + cfg.n_layers * attn_w)
+                 + 4 * b * hq * dh * s * s * (n_enc + cfg.n_layers))
+        read += cfg.n_layers * 2 * d * hq * dh  # the cross-attention's q and o
+        cache_bytes += 2 * cfg.n_layers * 2 * b * s * hkv * dh
+    decode_bytes = 2 * read + cache_bytes
+    return {"prefill_bf16_flops": bf16, "prefill_f32_flops": f32,
+            "prefill_bound_ms": (bf16 / BF16_FLOPS + f32 / F32_FLOPS) * 1e3,
+            "decode_experts_per_step": [sum(step) for step in experts_read],
+            "decode_experts_per_layer": [min(map(min, experts_read), default=0),
+                                         max(map(max, experts_read), default=0)],
+            "decode_bytes": decode_bytes,
+            "decode_bound_ms": decode_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+# flash_attention at the prefill shape of each zoo path: (entry, path,
+# causal).  seamless's encoder self-attention has its cross-attention's shape
+# (S = T = 2,048, non-causal); its decoder self-attention is causal.
+ZOO_FLASH = (("jamba", "hybrid_serving", True), ("qwen2_vl", "mrope_serving", True),
+             ("seamless_self", "encdec_serving", True),
+             ("seamless_cross", "encdec_serving", False))
+
+
+def phase_zoo_kernels(cfg, state):
+    """flash_attention and moe_mlp at the shapes the hybrid, M-RoPE and
+    encdec paths give them, bf16, against their twins (as ``lm_kernels``),
+    timed beside their bounds and one library call.  Returns ``{kernel:
+    {shape: entry}}``, each entry naming the path that runs its shape.
+
+    The expert FFN on the hybrid path's first MoE layer's weights at its
+    prefill capacity (``jamba_prefill``: E = 16, C = 1,280, D = 8,192, F =
+    24,576) and on a decode slab routed through that layer's router
+    (``jamba_decode_routed``); the twin, which upcasts the weights to float32,
+    runs one expert at a time beside the 48 GB model.  Flash attention at
+    each shape of ``ZOO_FLASH``: jamba's (64 q / 8 kv heads of 128, causal),
+    qwen2-vl's (12 q / 2 kv heads of 128, a group of 6, causal) and
+    seamless's (16 heads of 64; causal, and non-causal over the encoder's
+    2,048 frames), B = 4 and S = T = 2,048 as the paths run them.
+    """
+    import dataclasses
+
     import torch
 
-    from repro_torch.configs import get_config, param_count
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import serve_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import moe_capacity
 
-    cfg = get_config(SSM_ARCH)
-    b, s, gen = SSM_TRAFFIC
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    tokens, stats, state = serve_config(cfg, b, s, gen, seed=0)
-    launches = launch_counts()
-    if any(launches.values()):
-        raise AssertionError(f"ssm_serving launched kernels: {launches}")
-    if (tuple(tokens.shape) != (b, gen) or int(tokens.min()) < 0
-            or int(tokens.max()) >= cfg.vocab_size):
-        raise AssertionError(f"ssm_serving tokens {tuple(tokens.shape)} out of range")
-    n_params = sum(p.numel() for p in state["params"].parameters())
-    if n_params != param_count(cfg)["total"]:
-        raise AssertionError(f"ssm_serving: {n_params} parameters, the config counts "
-                             f"{param_count(cfg)['total']}")
-    s_cfg = cfg.ssm
-    _emit({"phase": "ssm_serving", "arch": cfg.name, "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "d_inner": s_cfg.expand * cfg.d_model,
-           "ssd_heads": s_cfg.expand * cfg.d_model // s_cfg.head_dim,
-           "head_dim": s_cfg.head_dim, "d_state": s_cfg.d_state, "chunk": s_cfg.chunk,
-           "vocab": cfg.vocab_size, "params": n_params,
-           "batch": b, "prompt_len": s, "gen": gen,
-           "cast_ms": stats["cast_s"] * 1e3, "prefill_ms": stats["prefill_s"] * 1e3,
-           "decode_ms_per_token": stats["decode_s"] * 1e3 / (gen - 1),
-           "tok_per_s": stats["tok_per_s"], "launches": launches,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           **_ssm_bounds(cfg, b, s), "tokens_head": tokens[0, :8].tolist()})
-    return cfg, state
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    b, s, _ = LM_PATHS["hybrid_serving"][2]
+    moe = state["compute"].periods[0].moe[0].moe
+    wg, wu, wd = moe.w_gate, moe.w_up, moe.w_down
+    e, d, _ = wg.shape
+    x = _randn(gen, (e, moe_capacity(cfg, b * s), d), wg.dtype)
+    experts = {"jamba_prefill": _moe_entry(x, wg, wu, wd, 0, 10, twin_chunk=1)}
+    del x
+    experts["jamba_decode_routed"], occupied = _routed_decode_entry(moe, cfg, b, gen, 0,
+                                                                    twin_chunk=1)
+    for en in experts.values():
+        en["path"] = "hybrid_serving"
+    flash = {}
+    for shape, path, causal in ZOO_FLASH:
+        arch, changes, (b, s, _) = LM_PATHS[path]
+        c = dataclasses.replace(get_config(arch), **changes)
+        q = _randn(gen, (b, c.n_heads, s, c.d_head))
+        k, v = (_randn(gen, (b, c.n_kv_heads, s, c.d_head)) for _ in range(2))
+        gqa = {"enable_gqa": True} if c.n_kv_heads != c.n_heads else {}
+        flash[shape] = {**_flash_entry(q, k, v, causal, 0, **gqa), "path": path}
+        del q, k, v
+    out = {"flash_attention": flash, "moe_mlp": experts}
+    _emit({"phase": "zoo_kernels", "occupied_experts": occupied,
+           "bf16": {f"{name}/{shape}": [en["max_abs_err"], en["scaled_err"]]
+                    for name, by_shape in out.items() for shape, en in by_shape.items()}})
+    return out
 
 
 # The examples' runs in the ``examples`` phase: (name, arguments after --device).
 EXAMPLES = (("quickstart", []), ("spmv_cg", []), ("serve_lm", []),
-            ("serve_lm", ["--arch", SSM_ARCH]))
+            ("serve_lm", ["--arch", SSM_ARCH]), ("serve_lm", ["--arch", HYBRID_ARCH]))
 
 
 def phase_examples():
@@ -1102,8 +1340,10 @@ def phase_examples():
     Each must print its ``OK`` line last, after its own assertion.  Counts
     are set to 0 before each: the quickstart launches the software-cache
     kernel and the combine once; CG launches both once per call the
-    scheduler served with the optimized SpMV; serve_lm's granite launches
-    flash attention once per layer, its mamba2 no kernel.
+    scheduler served with the optimized SpMV; serve_lm launches what
+    :func:`_expected_launches` says (its granite flash attention once per
+    layer, its mamba2 no kernel, its jamba flash once per period and the
+    expert FFN in every MoE layer of every step).
     """
     import contextlib
     import importlib.util
@@ -1142,11 +1382,26 @@ def phase_examples():
             tokens, stats = result
             rec = {"arch": cfg.name, "tokens": list(tokens.shape),
                    "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"]}
-            want = {"flash_attention": cfg.n_layers} if cfg.uses_attention else {}
+            want = {k: v for k, v in _expected_launches(cfg, tokens.shape[1]).items() if v}
         if launches != want:
             raise AssertionError(f"example {key}: launches {launches}, expected {want}")
         out[key] = {**rec, "seconds": seconds, "launches": launches}
     _emit(out)
+
+
+def _set_launches(entries, by_path) -> None:
+    """Each kernel entry's launches on every path, and their total; each of
+    its other shapes (a nested entry with a ``path``) the launches of the
+    path that runs that shape, or none for a layout no path runs (path
+    None).  The counter is per kernel: two shapes of one path both show the
+    path's count."""
+    for en in entries:
+        counts = {path: c[en["name"]] for path, c in by_path.items()}
+        en["launches_by_path"], en["launches"] = counts, sum(counts.values())
+        for sub in (v for v in en.values() if isinstance(v, dict) and "path" in v):
+            path = sub["path"]
+            sub["launches_by_path"] = {path: counts[path]} if path else {}
+            sub["launches"] = counts[path] if path else 0
 
 
 def main() -> int:
@@ -1207,24 +1462,23 @@ def main() -> int:
                 raise AssertionError(f"kernels not launched on the {path} path: {missing}")
         launches = {name: sum(c[name] for c in by_path.values()) for name in launches}
         entries = phase_kernels(plan, big, batched_plans, launches)
-        for en in entries:
-            en["launches_by_path"] = {path: c[en["name"]] for path, c in by_path.items()}
         phase_profile(svc, big, batched_plans[0][1])
 
-    cfg, state, launches = phase_lm_serving()
-    lm_entries = phase_lm_kernels(cfg, state, launches)
-    for en in lm_entries:
-        en["launches_by_path"] = {"lm_serving": en["launches"]}
-    entries += lm_entries
-    phase_lm_profile(cfg, state)
-    del state
-    torch.cuda.empty_cache()
-    phase_lm_checks()
-    torch.cuda.empty_cache()
-    ssm_cfg, ssm_state = phase_ssm_serving()
-    phase_lm_profile(ssm_cfg, ssm_state, SSM_TRAFFIC, "ssm_profile")
-    del ssm_state
-    torch.cuda.empty_cache()
+    for path in LM_PATHS:
+        cfg, state, by_path[path], experts_read = phase_serving(path)
+        if path == "lm_serving":
+            entries += phase_lm_kernels(cfg, state, by_path[path])
+        phase_lm_profile(cfg, state, path, experts_read)
+        if path == "hybrid_serving":  # its weights, while they are on the card
+            shapes = phase_zoo_kernels(cfg, state)
+            for en in entries:
+                en.update(shapes.get(en["name"], {}))
+        del state
+        torch.cuda.empty_cache()
+        if path == "lm_serving":
+            phase_lm_checks()
+            torch.cuda.empty_cache()
+    _set_launches(entries, by_path)
     phase_examples()
     _emit({"kernels": entries})
     _emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -3,12 +3,16 @@ with a decode cache, for any ported architecture (reduced config).
 
     PYTHONPATH=src python examples/torch_serve_lm.py [--arch granite-3-8b] [--device cuda|cpu]
     PYTHONPATH=src python examples/torch_serve_lm.py --arch mamba2-2.7b
+    PYTHONPATH=src python examples/torch_serve_lm.py --arch jamba-1.5-large-398b
 
-Attention architectures keep a K/V cache and run prefill attention through
-the flash-attention kernel (and the expert FFN through its kernel where the
-architecture has experts); the attention-free ``mamba2-2.7b`` carries the
-conv and SSD states instead.  The same example as ``examples/serve_lm.py``,
-on ``repro_torch``.
+``--arch`` takes every registered architecture.  Attention architectures
+keep a K/V cache and run prefill attention through the flash-attention
+kernel (and the expert FFN through its kernel where the architecture has
+experts); the attention-free ``mamba2-2.7b`` carries the conv and SSD states
+instead, and the hybrid ``jamba-1.5-large-398b`` both.  ``qwen2-vl-2b`` and
+``seamless-m4t-medium`` take the reference's front-end stubs (seeded
+embeddings; M-RoPE positions; the encoder's frames).  The same example as
+``examples/serve_lm.py``, on ``repro_torch``.
 """
 import argparse
 

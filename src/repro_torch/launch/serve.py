@@ -5,6 +5,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b --reduced
+
     PYTHONPATH=src python -m repro_torch.launch.serve --graph --requests 16 --churn 0.01
 
     PYTHONPATH=src python -m repro_torch.launch.serve --graph --batched \
@@ -20,14 +22,18 @@
 
 Port of the ``--arch`` and ``--graph`` modes of ``src/repro/launch/serve.py``.
 The ``--arch`` mode prefills a batch of seeded random prompts on a randomly
-initialised model of that architecture (the ``dense``, ``moe`` and ``ssm``
-families) and greedily decodes from it, through the flash-attention and
-expert-FFN kernels where the architecture has attention and experts (the
-attention-free ``ssm`` family, mamba2, runs plain PyTorch ops, as the
-reference runs plain JAX).  The ``--graph`` mode demonstrates the
-paper-§4.2 serving architecture: a stream of SpMV requests over a (mostly)
-repeated matrix hits the PartitionService's fingerprint cache; a churn batch
-triggers an *async* incremental repartition on the optimization thread while
+initialised model of any registered architecture and greedily decodes from
+it, through the flash-attention and expert-FFN kernels where the
+architecture has attention and experts (the attention-free ``ssm`` family,
+mamba2, runs plain PyTorch ops, as the reference runs plain JAX; the Mamba
+layers of the ``hybrid`` jamba likewise).  A modality front end is stubbed as
+the reference stubs it: seeded normal prompt embeddings (qwen2-vl's vision
+front end, with M-RoPE's three position streams; seamless's audio front end,
+whose encoder reads them as frame embeddings beside the decoder's tokens).
+The ``--graph`` mode demonstrates the paper-§4.2 serving architecture: a
+stream of SpMV requests over a (mostly) repeated matrix hits the
+PartitionService's fingerprint cache; a churn batch triggers an *async*
+incremental repartition on the optimization thread while
 requests keep being served under the old plan from a double buffer, which
 swaps when the new plan lands.  With ``--batched``, concurrent clients push
 distinct small matrices through ``GraphServer.submit``, and same-bucket
@@ -73,12 +79,11 @@ from ..core import (
 from ..device import resolve_device, synchronize
 from ..kernels import make_ep_spmv_fn, spmv_hbm_traffic_model
 from ..models import Model
-from ..models.transformer import check_supported
 from ..runtime import GraphRequest, GraphServer, make_decode_step, make_prefill_step
 
-__all__ = ["run_serving", "serve_config", "run_graph_serving", "run_batched_graph_serving",
-           "run_multitenant_graph_serving", "run_replicated_graph_serving",
-           "run_overload_graph_serving", "main"]
+__all__ = ["run_serving", "serve_config", "prefill_inputs", "run_graph_serving",
+           "run_batched_graph_serving", "run_multitenant_graph_serving",
+           "run_replicated_graph_serving", "run_overload_graph_serving", "main"]
 
 
 def run_serving(
@@ -104,16 +109,17 @@ def serve_config(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, devi
     The compute copies of the master weights are cast once, before the
     prompts arrive (``cast_s``), and every step runs on them.  Returns
     ``(tokens (B, gen), timing dict, state)``; ``state`` holds the
-    ``model``, its master ``params``, their ``compute`` copies and the
-    ``prompt`` for a caller that goes on with them.  Every timing ends in a
-    device synchronize.
+    ``model``, its master ``params``, their ``compute`` copies, the
+    ``prompt`` tokens and the prefill ``inputs`` for a caller that goes on
+    with them.  Every timing ends in a device synchronize.
     """
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     params = model.init(seed)
     max_len = prompt_len + gen
-    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-        2, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    inputs = prefill_inputs(cfg, prompt, rng)
     prefill = make_prefill_step(model, max_len=max_len)
     decode = make_decode_step(model)
 
@@ -122,7 +128,7 @@ def serve_config(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, devi
     compute = model.compute_params(params)
     synchronize(dev)
     t0 = time.perf_counter()
-    tok, cache = prefill(compute, {"tokens": prompt})
+    tok, cache = prefill(compute, inputs)
     tok = tok[:, None]
     synchronize(dev)
     t_prefill = time.perf_counter() - t0
@@ -141,8 +147,44 @@ def serve_config(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, devi
         "decode_s": t_decode,
         "tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
     }
-    state = {"model": model, "params": params, "compute": compute, "prompt": prompt}
+    state = {"model": model, "params": params, "compute": compute, "prompt": prompt,
+             "inputs": inputs}
     return torch.cat(out, dim=1), stats, state
+
+
+def prefill_inputs(cfg, prompt, rng, *, positions3=None, enc_len=None) -> dict:
+    """The prefill batch of ``prompt (B, S)``, with the reference's
+    modality stubs drawn from ``rng``: a front end's config gets seeded
+    normal ``embeds (B, S, D)`` in place of the tokens and, with M-RoPE,
+    ``positions3``: the ``(3, S)`` streams given, broadcast over the batch,
+    else ``arange(S)`` in all three, as the reference has them.  ``encdec``
+    gets the tokens for its decoder and ``enc_embeds`` for its encoder: with
+    ``enc_len`` None those are the ``embeds`` (the reference draws both from
+    one key, so they are equal, and since embeds win over tokens its
+    decoder reads them: the tokens go unread in prefill); an ``enc_len``
+    draws an encoder input of that length and leaves the decoder the
+    tokens.  ``positions3`` and ``enc_len`` are ignored by a config that
+    has no use for them."""
+    b, s = prompt.shape
+
+    def normal(length):
+        return torch.from_numpy(
+            rng.standard_normal((b, length, cfg.d_model), dtype=np.float32)).to(prompt.device)
+
+    if cfg.family == "encdec":
+        if enc_len is not None:
+            return {"tokens": prompt, "enc_embeds": normal(enc_len)}
+        inputs = {"tokens": prompt, "enc_embeds": normal(s)}
+        if cfg.frontend:
+            inputs["embeds"] = inputs["enc_embeds"]
+        return inputs
+    if not cfg.frontend:
+        return {"tokens": prompt}
+    inputs = {"embeds": normal(s)}
+    if cfg.mrope:
+        streams = torch.arange(s).expand(3, s) if positions3 is None else positions3
+        inputs["positions3"] = streams.to(prompt.device, torch.int32)[:, None, :].expand(3, b, s)
+    return inputs
 
 
 def run_graph_serving(
@@ -731,12 +773,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.arch:
         try:
-            check_supported(get_config(args.arch, reduced=args.reduced))
+            get_config(args.arch, reduced=args.reduced)
         except KeyError as exc:
             ap.error(str(exc))
-        except NotImplementedError as exc:
-            ap.error(f"--arch {args.arch}: not ported yet to repro_torch ({exc}); "
-                     "use python -m repro.launch.serve")
     if not args.graph:
         if not args.arch:
             ap.error("--arch is required unless --graph is given")

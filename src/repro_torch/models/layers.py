@@ -5,18 +5,20 @@ flat-head layout ``(B, H, S, Dh)`` (K/V ``(B, Hkv, S, Dh)``, not repeated:
 the prefill kernel reads kv head ``h // (H // Hkv)`` for q head ``h``), and
 the cache in its native ``(B, T, Hkv, Dh)`` layout for decode; norms, RoPE
 and softmax in float32 whatever the activation type; weights in
-``(d_in, d_out)`` layout (``x @ w``).  ``apply_mrope`` and the pure-JAX
-``chunked_attention`` stay in the reference: prefill attention goes through
+``(d_in, d_out)`` layout (``x @ w``).  The pure-JAX ``chunked_attention``
+stays in the reference: prefill attention goes through
 :func:`repro_torch.kernels.flash_attention`.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "apply_mrope",
     "apply_rope",
     "decode_attention",
     "dot_f32",
@@ -87,6 +89,28 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: ``(B, H, S, Dh)``; positions: ``(B, S)``."""
     cos, sin = make_rope_cache(positions, x.shape[-1], theta)  # (B, S, half)
+    shape = (cos.shape[0],) + (1,) * (x.dim() - 3) + tuple(cos.shape[1:])
+    return _rotate(x, cos.reshape(shape), sin.reshape(shape))
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections, theta: float) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl §2): three position streams (t, h, w).
+
+    x: ``(B, ..., S, Dh)``; positions3: ``(3, B, S)``.  ``sections`` gives how
+    many of the ``Dh // 2`` frequency pairs take their position from each
+    stream, in order (``sum(sections) == Dh // 2``).
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {half}")
+    cos3, sin3 = make_rope_cache(positions3, x.shape[-1], theta)  # (3, B, S, half)
+    # Pair i's angle from the stream whose section holds it: each stream's
+    # slice of its own table, side by side -> (B, S, half).  Slices, not an
+    # index tensor, so no host-to-device copy per call.
+    ends = list(itertools.accumulate(sections))
+    spans = list(zip([0] + ends[:-1], ends))
+    cos = torch.cat([cos3[i, ..., lo:hi] for i, (lo, hi) in enumerate(spans)], dim=-1)
+    sin = torch.cat([sin3[i, ..., lo:hi] for i, (lo, hi) in enumerate(spans)], dim=-1)
     shape = (cos.shape[0],) + (1,) * (x.dim() - 3) + tuple(cos.shape[1:])
     return _rotate(x, cos.reshape(shape), sin.reshape(shape))
 

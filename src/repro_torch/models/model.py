@@ -1,8 +1,11 @@
 """Public model facade for serving (port of ``repro.models.model``).
 
-``Model(cfg, device)`` initialises weights, allocates the decode cache (K/V,
-or the conv and SSD states of the ``ssm`` family), and runs prefill and
-one-token decode for the ``dense``, ``moe`` and ``ssm`` families.  A
+``Model(cfg, device)`` initialises weights, allocates the decode cache (K/V;
+the conv and SSD states of the ``ssm`` family; both for ``hybrid``; K/V and
+the cross-attention's for ``encdec``), and runs prefill and one-token decode
+for every family.  A prefill batch holds ``tokens`` or a front end's
+``embeds`` (with M-RoPE's ``positions3``), and for ``encdec`` the encoder's
+``enc_embeds``; it is passed through as it is.  A
 server casts the compute-type copies of the master weights once, with
 :meth:`Model.compute_params`, and passes the copies to every step; a step
 casts what it is given, which leaves copies already of the compute type as
@@ -41,8 +44,8 @@ class Model:
 
     # -- serving ----------------------------------------------------------
 
-    def init_cache(self, batch_size: int, max_len: int) -> dict:
-        return tf.init_cache(self.cfg, batch_size, max_len, self.device)
+    def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0) -> dict:
+        return tf.init_cache(self.cfg, batch_size, max_len, self.device, enc_len)
 
     def prefill(self, params: Params, batch: dict, max_len: int):
         """Full-context forward; returns (last-token logits (B, V) f32, cache).

@@ -22,6 +22,7 @@ no counterpart here: there is no mesh.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -30,8 +31,24 @@ import torch.nn.functional as F
 from ..kernels import moe_mlp
 from .layers import dot_f32, init_linear
 
-__all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "route",
-           "router_load_balancing_loss"]
+__all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "recorded_routing",
+           "route", "router_load_balancing_loss"]
+
+_routing: Optional[list] = None  # the active recorded_routing's list
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Collect, while active, the expert ids ``(T, k)`` that each
+    :func:`moe_ffn` call routes to (slab slots, after ``expert_perm``), in
+    call order.  Nothing is copied or waited for: the list holds the
+    device tensors."""
+    global _routing
+    saved, _routing = _routing, []
+    try:
+        yield _routing
+    finally:
+        _routing = saved
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
@@ -129,6 +146,8 @@ def moe_ffn(
     aux = router_load_balancing_loss(probs, ids, n_experts)
     if expert_perm is not None:
         ids = expert_perm.to(ids.device)[ids]  # logical -> physical slot
+    if _routing is not None:
+        _routing.append(ids)
 
     slab, rows, keep = dispatch(x, ids, n_experts, capacity)
     out_slab = moe_mlp(slab, params["w_gate"], params["w_up"], params["w_down"])

@@ -61,22 +61,37 @@ def params_from_reference(tree: dict, cfg, device) -> Params:
     """The port's weights from the JAX package's param pytree as numpy arrays.
 
     ``tree`` is ``repro.models.Model(cfg).init(key)`` with every leaf turned
-    into a numpy array (``jax.tree.map(np.asarray, params)``); its ``blocks``
-    leaves carry a leading layer axis, which becomes one module per layer.
-    The ``dense``, ``moe`` and ``ssm`` families are carried.
+    into a numpy array (``jax.tree.map(np.asarray, params)``).  Its stacked
+    subtrees become lists of modules: ``blocks`` and ``encoder`` carry a
+    leading layer axis (one module per layer); ``periods`` (``hybrid``) a
+    leading period axis, and within a period ``mamba``, ``moe`` and ``mlp`` a
+    second axis, the index within the period (one module per period, each
+    holding its ``attn`` and lists of those layers).
     """
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(f"the {cfg.family} family is not ported to repro_torch yet")
     dev = torch.device(device)
 
-    def leaf(a):
-        return torch.from_numpy(np.array(a)).to(dev)  # a writable copy
-
-    def convert(t, layer=None):
+    def convert(t, index=()):
         if isinstance(t, dict):
-            return {k: convert(v, layer) for k, v in t.items()}
-        return leaf(t if layer is None else t[layer])
+            return {k: convert(v, index) for k, v in t.items()}
+        return torch.from_numpy(np.array(t[index])).to(dev)  # a writable copy
 
-    out = {k: convert(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [convert(tree["blocks"], i) for i in range(cfg.n_layers)]
+    def layers(t, n, index=()):
+        return [convert(t, index + (i,)) for i in range(n)]
+
+    def in_period(t):
+        """The number of layers in a period's stacked subtree (its first leaf's axis 1)."""
+        while isinstance(t, dict):
+            t = next(iter(t.values()))
+        return t.shape[1]
+
+    depth = {"blocks": cfg.n_layers, "encoder": cfg.n_encoder_layers}
+    out = {}
+    for name, t in tree.items():
+        if name in depth:
+            out[name] = layers(t, depth[name])
+        elif name == "periods":
+            out[name] = [{k: convert(v, (p,)) if k == "attn" else layers(v, in_period(v), (p,))
+                          for k, v in t.items()} for p in range(cfg.n_layers // cfg.attn_every)]
+        else:
+            out[name] = convert(t)
     return Params(out)

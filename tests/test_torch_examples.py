@@ -4,7 +4,7 @@ Each runs through its ``main(argv)`` with ``--device cpu`` and must print
 its reference's ``OK`` line after meeting its reference's assertion: the
 quickstart's EP-SpMV within 1e-4 of the COO oracle, CG's residual under
 1e-3 within 60 iterations, and the served tokens' shape (the default
-granite-3-8b, and mamba2-2.7b).  Without a CUDA device, an example given no
+granite-3-8b, mamba2-2.7b, and the hybrid jamba-1.5-large-398b).  Without a CUDA device, an example given no
 ``--device`` raises instead of carrying on on the CPU.
 """
 import importlib.util
@@ -57,7 +57,8 @@ def test_spmv_cg_problem_is_the_references():
         assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("arch", [None, "mamba2-2.7b"], ids=["default", "mamba2"])
+@pytest.mark.parametrize("arch", [None, "mamba2-2.7b", "jamba-1.5-large-398b"],
+                         ids=["default", "mamba2", "jamba"])
 def test_serve_lm_on_cpu(arch, capsys):
     argv = ["--device", "cpu", "--batch", "2", "--prompt-len", "19", "--gen", "5"]
     if arch:

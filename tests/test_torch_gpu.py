@@ -24,6 +24,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, launch_counts, moe_mlp  # noqa: E402
 from repro_torch.kernels.ops import ep_spmv  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, moe_mlp_ref  # noqa: E402
+from repro_torch.launch.serve import prefill_inputs  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.runtime import GraphRequest, GraphServer  # noqa: E402
 
@@ -322,9 +323,11 @@ def test_moe_mlp_matches_twin(cuda_device, no_tf32, dtype, e, c, d, f):
     (1, 8, 2, 200, 333, 64, False),   # T != S, neither a multiple of 128
     (2, 8, 4, 257, 190, 128, True),   # S > T
     (1, 32, 4, 640, 640, 128, True),  # qwen3-moe's 32 / 4 heads
+    (2, 12, 2, 384, 384, 128, True),  # qwen2-vl-2b's 12 / 2 heads: a group of 6
+    (1, 16, 16, 700, 700, 64, True),  # seamless's causal decoder self-attention, Dh 64
 ])
 def test_flash_attention_gqa_matches_twin(cuda_device, b, h, hkv, s, t, d, causal):
-    """Un-repeated K/V (Hkv < H): q head h reads kv head h // (H // Hkv)."""
+    """Un-repeated K/V (Hkv <= H): q head h reads kv head h // (H // Hkv)."""
     q = _randn((b, h, s, d), torch.bfloat16, cuda_device, 0)
     k = _randn((b, hkv, t, d), torch.bfloat16, cuda_device, 1)
     v = _randn((b, hkv, t, d), torch.bfloat16, cuda_device, 2)
@@ -335,6 +338,35 @@ def test_flash_attention_gqa_matches_twin(cuda_device, b, h, hkv, s, t, d, causa
     _assert_kernel_close(out, want)
     assert torch.equal(out, flash_attention(q, k.repeat_interleave(g, 1).contiguous(),
                                             v.repeat_interleave(g, 1).contiguous(), causal))
+
+
+def test_flash_attention_cross_shape_matches_twin(cuda_device):
+    """seamless-m4t-medium's cross-attention: head size 64, H = Hkv = 16,
+    non-causal over T != S keys (an encoder input longer than the prompt)."""
+    q = _randn((2, 16, 300, 64), torch.bfloat16, cuda_device, 0)
+    k = _randn((2, 16, 517, 64), torch.bfloat16, cuda_device, 1)
+    v = _randn((2, 16, 517, 64), torch.bfloat16, cuda_device, 2)
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_kernel_close(out, flash_attention_ref(q, k, v, False))
+
+
+@pytest.mark.parametrize("c", [64, 8])
+def test_moe_mlp_at_jamba_widths_matches_twin(cuda_device, c):
+    """jamba-1.5-large's expert widths (D 8,192, F 24,576) on two experts,
+    at the largest capacity of the small-capacity path and at decode's."""
+    e, d, f = 2, 8192, 24576
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * scale).bfloat16()
+
+    x = randn((e, c, d))
+    wg, wu = randn((e, d, f), d ** -0.5), randn((e, d, f), d ** -0.5)
+    wd = randn((e, f, d), f ** -0.5)
+    out = moe_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    _assert_kernel_close(out, moe_mlp_ref(x, wg, wu, wd))
 
 
 def _routed_slab(e, c, d, dev, seed):
@@ -376,21 +408,33 @@ def test_bf16_kernels_use_wgmma_and_tma(cuda_device):
         assert "HGMMA" in sass and "UTMALDG" in sass, name
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-2b",
+                                  "seamless-m4t-medium"])
 def test_reduced_model_on_card_matches_cpu(cuda_device, no_tf32, arch):
     """Same weights and prompt: the kernels on the card against the twins on
     the CPU, through prefill and three decode steps fed the CPU's tokens.
     Float32 throughout; 1e-4 covers sums taken in other orders over 2 layers.
     The attention-free mamba2 launches no kernel (its prompt of 24 tokens
-    spans two SSD chunks of 16, the second padded)."""
+    spans two SSD chunks of 16, the second padded); the hybrid jamba (two
+    periods of four) launches flash once a period and the expert FFN in its
+    MoE layers; seamless launches flash in its encoder layers and twice in
+    each decoder layer (self- and cross-attention) at prefill."""
     cfg = get_config(arch, reduced=True)
     cpu, card = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
     params = cpu.init(0)
     params_card = params.map(lambda _, w: w.to(cuda_device))
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (2, 24)))
-    want, cache = cpu.prefill(params, {"tokens": tokens}, 27)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 24)))
+    # Three different M-RoPE streams (t constant, h = i // 8, w = i % 8), and
+    # an encoder input longer than the prompt.
+    i = torch.arange(24)
+    inputs = prefill_inputs(cfg, prompt, rng, positions3=torch.stack([0 * i, i // 8, i % 8]),
+                            enc_len=24 + 13)
+    want, cache = cpu.prefill(params, inputs, 27)
     before = launch_counts()
-    got, cache_card = card.prefill(params_card, {"tokens": tokens.to(cuda_device)}, 27)
+    got, cache_card = card.prefill(params_card,
+                                   {k: v.to(cuda_device) for k, v in inputs.items()}, 27)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     for i in range(3):
         tok = torch.argmax(want, -1)[:, None]
@@ -399,10 +443,11 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, no_tf32, arch):
                                            {"tokens": tok.to(cuda_device)}, 24 + i)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     after = launch_counts()
-    flash = cfg.n_layers if cfg.uses_attention else 0
+    flash = cfg.layer_kinds().count("attn")
+    if cfg.family == "encdec":
+        flash += cfg.n_encoder_layers + cfg.n_layers
     assert after["flash_attention"] == before["flash_attention"] + flash
-    if cfg.moe is not None:
-        assert after["moe_mlp"] == before["moe_mlp"] + 4 * cfg.n_layers
+    assert after["moe_mlp"] == before["moe_mlp"] + 4 * cfg.ffn_kinds().count("moe")
 
 
 def _example(name):

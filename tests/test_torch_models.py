@@ -1,11 +1,15 @@
 """The port's serving models on the CPU against the JAX package's.
 
 Reduced ``qwen3-moe-30b-a3b`` (MoE, qk_norm, GQA), ``qwen2-moe-a2.7b``
-(shared experts), ``granite-3-8b`` (dense, tied embeddings) and
-``mamba2-2.7b`` (attention-free SSM, conv and SSD states for a cache) run
-with the JAX package's own initialised weights, carried across by
-``params_from_reference``; the JAX side runs on the CPU as its own tests run
-it.  Reduced configs compute in float32.  Tolerances: 1e-4 on logits (and
+(shared experts), ``granite-3-8b`` (dense, tied embeddings), ``mamba2-2.7b``
+(attention-free SSM, conv and SSD states for a cache),
+``jamba-1.5-large-398b`` (hybrid: attention, Mamba, MoE and MLP layers in
+periods), ``qwen2-vl-2b`` (M-RoPE behind the vision stub's embeddings) and
+``seamless-m4t-medium`` (encoder-decoder behind the audio stub) run with the
+JAX package's own initialised weights, carried across by
+``params_from_reference``, on batches built as the reference's
+``tests/test_models.py`` builds them; the JAX side runs on the CPU as its
+own tests run it.  Reduced configs compute in float32.  Tolerances: 1e-4 on logits (and
 1e-5 on MoE outputs, 1e-6 on the aux loss): float32 sums taken in another
 order by XLA and by PyTorch over at most two layers of width 64 differ by a
 few 1e-6; a real fault (a wrong mask, norm order, RoPE half or dropped pair)
@@ -35,7 +39,8 @@ from repro_torch.models.layers import apply_rope, decode_attention  # noqa: E402
 from repro_torch.models.moe import expert_positions, moe_ffn, route  # noqa: E402
 from repro_torch.models.transformer import cast_params_for_compute, moe_capacity  # noqa: E402
 
-ARCHS = ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "granite-3-8b", "mamba2-2.7b"]
+ARCHS = ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "granite-3-8b", "mamba2-2.7b",
+         "jamba-1.5-large-398b", "qwen2-vl-2b", "seamless-m4t-medium"]
 MOE_ARCHS = ARCHS[:2]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 _CACHE: dict = {}
@@ -60,13 +65,55 @@ def _t(a):
     return torch.from_numpy(np.array(a)).long()
 
 
+def _batch(cfg, b, s, seed=0):
+    """numpy inputs as the reference's tests build them: a front end's
+    ``embeds`` (and M-RoPE's ``positions3``, equal streams) in place of
+    tokens; ``encdec`` adds ``enc_embeds`` and the decoder's tokens."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": _tokens(cfg, b, s, seed)}
+    if cfg.frontend:
+        batch = {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)}
+        if cfg.mrope:
+            batch["positions3"] = np.broadcast_to(np.arange(s, dtype=np.int32), (3, b, s)).copy()
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        batch["tokens"] = _tokens(cfg, b, s, seed)
+    return batch
+
+
+def _jx(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _pt(batch):
+    return {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_from_reference_carries_every_weight(arch):
     cfg, _, jp, port = _pair(arch)
-    assert sum(p.numel() for p in port.parameters()) == param_count(cfg)["total"]
-    mixer, weight = ("mamba", "in_proj") if cfg.family == "ssm" else ("attn", "wq")
-    want = np.asarray(jp["blocks"][mixer][weight][1])
-    assert np.array_equal(port.blocks[1][mixer][weight].numpy(), want)
+    n_ref = sum(a.size for a in jax.tree.leaves(jp))
+    assert sum(p.numel() for p in port.parameters()) == n_ref
+    if cfg.family != "encdec":  # param_count leaves out enc_final_norm
+        assert n_ref == param_count(cfg)["total"]
+    # A leaf of a layer past the first, in each stacked subtree of the family.
+    if cfg.family == "ssm":
+        pairs = [(jp["blocks"]["mamba"]["in_proj"][1], port.blocks[1].mamba.in_proj)]
+    elif cfg.family == "hybrid":
+        pp = jp["periods"]
+        pairs = [(pp["mamba"]["mamba"]["in_proj"][1, 2], port.periods[1].mamba[2].mamba.in_proj),
+                 (pp["moe"]["moe"]["w_down"][1, 1], port.periods[1].moe[1].moe.w_down),
+                 (pp["mlp"]["w_up"][1, 1], port.periods[1].mlp[1].w_up),
+                 (pp["attn"]["wq"][1], port.periods[1].attn.wq)]
+    elif cfg.family == "encdec":
+        pairs = [(jp["encoder"]["ffn"]["w_up"][1], port.encoder[1].ffn.w_up),
+                 (jp["blocks"]["cross"]["wk"][1], port.blocks[1].cross.wk),
+                 (jp["enc_final_norm"], port.enc_final_norm)]
+    else:
+        pairs = [(jp["blocks"]["attn"]["wq"][1], port.blocks[1].attn.wq)]
+    for want, got in pairs:
+        assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 def test_cast_params_for_compute_keeps_routing_f32():
@@ -154,13 +201,12 @@ def test_layers_match_reference():
 def test_prefill_and_decode_match_reference(arch):
     cfg, jm, jp, port = _pair(arch)
     b, s, gen = 2, 24, 3
-    toks = _tokens(cfg, b, s)
-    jlogits, jcache = jax.jit(lambda p, x: jm.prefill(p, x, s + gen))(
-        jp, {"tokens": jnp.asarray(toks)})
+    batch = _batch(cfg, b, s)
+    jlogits, jcache = jax.jit(lambda p, x: jm.prefill(p, x, s + gen))(jp, _jx(batch))
     model = Model(cfg, device="cpu")
-    logits, cache = model.prefill(port, {"tokens": _t(toks)}, s + gen)
+    logits, cache = model.prefill(port, _pt(batch), s + gen)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **LOGIT_TOL)
-    assert sorted(cache) == sorted(jcache)  # k/v, or conv/ssm for the ssm family
+    assert sorted(cache) == sorted(jcache)  # k/v, conv/ssm, or both; cross_k/cross_v
     for name in cache:
         assert cache[name].shape == jcache[name].shape
         assert str(cache[name].dtype).removeprefix("torch.") == str(jcache[name].dtype)
@@ -179,17 +225,22 @@ def test_prefill_and_decode_match_reference(arch):
 def test_decode_matches_teacher_forcing(arch):
     """Prefill(s) then decode token s equals prefill(s+1)'s last logits (the
     reference's own check, tests/test_models.py, with its tolerance; MoE gets
-    a no-drop capacity factor there too)."""
+    a no-drop capacity factor there too).  A front end's step reads its
+    embedding, and the encoder's input is the whole ``enc_embeds``."""
     cfg = get_config(arch, reduced=True)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
     model = Model(cfg, device="cpu")
     params = model.init(2)
     b, s = 2, 16
-    toks = _t(_tokens(cfg, b, s + 1, seed=2))
-    full, _ = model.prefill(params, {"tokens": toks}, s + 1)
-    _, cache = model.prefill(params, {"tokens": toks[:, :s]}, s + 1)
-    step, _ = model.decode_step(params, cache, {"tokens": toks[:, s:]}, s)
+    whole = _pt(_batch(cfg, b, s + 1, seed=2))
+    prefix = {k: v if k == "enc_embeds" else v[..., :s, :] if k == "embeds" else v[..., :s]
+              for k, v in whole.items()}
+    nxt = ({"embeds": whole["embeds"][:, s:]} if "embeds" in whole
+           else {"tokens": whole["tokens"][:, s:]})
+    full, _ = model.prefill(params, whole, s + 1)
+    _, cache = model.prefill(params, prefix, s + 1)
+    step, _ = model.decode_step(params, cache, nxt, s)
     np.testing.assert_allclose(step.numpy(), full.numpy(), rtol=2e-4, atol=2e-4)
 
 
@@ -216,7 +267,9 @@ def test_compute_copies_are_cast_once_and_never_stale(arch):
     again = model.compute_params(compute)
     assert [w.data_ptr() for w in again.parameters()] == [
         w.data_ptr() for w in compute.parameters()]
-    toks = {"tokens": _t(_tokens(cfg, 2, 8, seed=3))}
+    toks = {"tokens": _t(_tokens(cfg, 2, 8, seed=3))}  # tokens read the embedding table
+    if cfg.family == "encdec":
+        toks["enc_embeds"] = _pt(_batch(cfg, 2, 8, seed=3))["enc_embeds"]
     got = model.prefill(compute, toks, 9)[0]
     assert torch.equal(got, model.prefill(masters, toks, 9)[0])
     masters.embed.mul_(2.0)  # weights updated in place: no copy of the old ones is served
@@ -225,10 +278,7 @@ def test_compute_copies_are_cast_once_and_never_stale(arch):
     assert torch.equal(moved, model.prefill(model.compute_params(masters), toks, 9)[0])
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("jamba-1.5-large-398b", "hybrid"),
-    ("seamless-m4t-medium", "encdec"), ("qwen2-vl-2b", "M-RoPE"),
-])
-def test_unported_configs_raise_naming_them(arch, what):
-    with pytest.raises(NotImplementedError, match=what):
-        Model(get_config(arch, reduced=True), device="cpu")
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(get_config("granite-3-8b", reduced=True), family="retnet")
+    with pytest.raises(NotImplementedError, match="retnet"):
+        Model(cfg, device="cpu")

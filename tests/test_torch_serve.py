@@ -87,13 +87,6 @@ class TestDrivers:
                            jnp.asarray(x))
         np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
-    @pytest.mark.parametrize("flag", ["--arch jamba-1.5-large-398b"])
-    def test_unported_modes_are_named(self, flag, capsys):
-        with pytest.raises(SystemExit) as exc:
-            port_serve.main(["--graph", *flag.split()])
-        assert exc.value.code == 2
-        assert "not ported yet" in capsys.readouterr().err
-
     @pytest.mark.parametrize("argv", ["--arch mamba2-2.7b", "--arch mamba2-2.7b --reduced"])
     def test_ssm_arch_reaches_run_serving(self, argv, monkeypatch, capsys):
         calls = []
@@ -107,6 +100,26 @@ class TestDrivers:
         assert calls == [("mamba2-2.7b", {"batch": 4, "prompt_len": 32, "gen": 16,
                                           "reduced": "--reduced" in argv})]
         assert "generated (4, 16) tokens" in capsys.readouterr().out
+
+    @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen2-vl-2b",
+                                      "seamless-m4t-medium"])
+    def test_hybrid_mrope_encdec_archs_reach_run_serving(self, arch, monkeypatch, capsys):
+        calls = []
+
+        def fake(arch, **kw):
+            calls.append((arch, kw))
+            return torch.zeros((kw["batch"], kw["gen"]), dtype=torch.int32), {}
+
+        monkeypatch.setattr(port_serve, "run_serving", fake)
+        assert port_serve.main(["--arch", arch, "--reduced", "--gen", "5"]) == 0
+        assert calls == [(arch, {"batch": 4, "prompt_len": 32, "gen": 5, "reduced": True})]
+        assert "generated (4, 5) tokens" in capsys.readouterr().out
+
+    def test_unknown_arch_is_named(self, capsys):
+        with pytest.raises(SystemExit) as exc:
+            port_serve.main(["--arch", "no-such-model"])
+        assert exc.value.code == 2
+        assert "unknown arch 'no-such-model'" in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv, driver, want", [
         ("--tenants 3", "run_multitenant_graph_serving",
