@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -109,13 +109,31 @@ bounds and library calls; each such shape's launches are those of the path
 that runs it.  ``lm_checks`` also holds the three reduced models card
 against CPU and each at full width against teacher forcing.
 
-The ``examples`` phase runs the port's three examples through their
+The training path (``training``): ``run_training`` on qwen3-moe-30b-a3b at
+its published widths, layers 0-3 (3,114,814,464 parameters), f32 masters,
+bf16 compute, remat, its own AdamW and warmup-cosine, 6 steps of 8 x 2,048
+synthetic tokens in 2 microbatches, counts set to 0 just before and read
+just after: every loss and grad norm finite, no kernel launched (the
+reference trains through no Pallas kernel: chunked attention and einsum
+experts, differentiable PyTorch here), every leaf a nonzero gradient; each
+step's loss, grad norm, lr and wall ms, the steady step and tokens/s, the
+peak memory, the step's bound (the products over the bf16 rate plus
+AdamW's bytes over the memory rate) and one profiled step.
+``train_checks``: ``forward_train``'s last hidden state against
+``forward_prefill``'s (through the kernels) at published widths in float32,
+and one train step of every registered reduced config on the card against
+the CPU, each within E2E_TOL; ``train_restart``: the reference's restart
+test on the card under deterministic algorithms, in a process of its own
+beside ``train_checks`` and ``examples``, bit-exact.
+
+The ``examples`` phase runs the port's four examples through their
 ``main(["--device", "cuda"])``: the quickstart (EP-SpMV within 1e-4 of the
 COO oracle, through the software-cache kernel and the combine), CG behind
 the adaptive scheduler (residual under 1e-3; the kernel runs on the
-iterations the scheduler gives it), and serve_lm with its default reduced
+iterations the scheduler gives it), serve_lm with its default reduced
 granite-3-8b (flash attention), with reduced mamba2-2.7b and with reduced
-jamba-1.5-large-398b.
+jamba-1.5-large-398b, and train_lm (reduced qwen3-moe-30b-a3b, 20 steps,
+the loss falls, no kernel launched).
 
 The build phase also counts the HGMMA (wgmma) and UTMALDG (TMA load)
 instructions in each kernel of the flash-attention and expert-FFN libraries,
@@ -130,6 +148,7 @@ device record.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -228,7 +247,14 @@ SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
 SASS_NEEDS = {"bf16": ("HGMMA", "UTMALDG"), "stream_kernel": ("LDG.128",)}
 
 
+_T0 = time.perf_counter()
+
+
 def _emit(obj) -> None:
+    """One JSON line; a phase's line also holds the seconds since the script
+    started (``at_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj, default=str), flush=True)
 
 
@@ -1329,9 +1355,319 @@ def phase_zoo_kernels(cfg, state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The training path
+# ---------------------------------------------------------------------------
+
+# qwen3-moe-30b-a3b at its published widths, layers 0-3: 622,331,904
+# embedding, head and final-norm parameters plus 4 x 623,120,640 a layer
+# (param_count's total).  f32 masters, bf16 compute, remat on;
+# run_training's own AdamW and warmup_cosine(3e-4); SyntheticPipeline
+# batches of 8 x 2,048 tokens in 2 microbatches of 4.
+TRAIN = {"n_layers": 4, "steps": 6, "batch": 8, "seq": 2048, "microbatches": 2}
+TRAIN_PARAMS = 3_114_814_464
+# Train against serve: published widths in float32, layers 0-1, B 2 x 2,048.
+TRAIN_VS_SERVE = {"n_layers": 2, "batch": 2, "seq": 2048}
+# The reference's restart test (tests/test_fault.py:171-185), run on the card.
+RESTART = {"arch": "granite-3-8b", "steps": 16, "batch": 4, "seq": 32, "reduced": True,
+           "ckpt_every": 5, "num_microbatches": 2}
+RESTART_FAIL_AT = 12
+# The reduced configs' one step, card against CPU: a learning rate small
+# enough that Adam's first update (lr * g / |g| for every element) cannot
+# turn a gradient's rounding-level sign difference into a weight difference
+# near E2E_TOL; the gradients themselves are compared directly.
+CHECK_LR = 1e-5
+
+
+def _product_params(cfg):
+    """The weights each token is multiplied by in a MoE stack: attention's four
+    projections, the router and the top-k experts' three matrices in each
+    layer, and the head (the embedding is a gather, the norms elementwise)."""
+    d, dh, e = cfg.d_model, cfg.d_head, cfg.moe
+    attn = 2 * d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh
+    ffn = d * e.n_experts + e.top_k * 3 * d * e.d_ff_expert
+    return cfg.n_layers * (attn + ffn) + d * cfg.vocab_size
+
+
+def _train_bound(cfg, tokens, batch, seq, n_params):
+    """The step's least time on the card: the model's products (6 x the
+    weights a token is multiplied by x tokens, plus causal attention's two
+    products, 3 x 2 B H S^2 Dh a layer) over the bf16 tensor-core rate, plus
+    AdamW's bytes (28 a parameter: read the master, gradient, m and v; write
+    the master, m and v) over the memory rate."""
+    active = _product_params(cfg)
+    attn = 3 * 2 * batch * cfg.n_heads * seq * seq * cfg.d_head * cfg.n_layers
+    flops = 6 * active * tokens + attn
+    adam_bytes = 28 * n_params
+    return {"active_params": active, "flops": flops, "adamw_bytes": adam_bytes,
+            "products_ms": flops / BF16_FLOPS * 1e3,
+            "adamw_ms": adam_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": (flops / BF16_FLOPS + adam_bytes / HBM_BYTES_PER_S) * 1e3}
+
+
+def phase_training():
+    """The training path: ``run_training`` on qwen3-moe-30b-a3b at its
+    published widths, layers 0-3 (``TRAIN``), counts set to 0 just before
+    and read just after.
+
+    Prints each step's loss, grad norm, lr and wall ms, the steady step
+    (median of steps 1-5) and tokens/s, the peak device memory and the
+    step's bound (:func:`_train_bound`); then profiles one more step
+    (device busy time by kernel; its ratio to the steady step is the device's
+    busy share).  Fails unless every loss and grad norm is finite, no kernel
+    was launched (the reference's train path runs no Pallas kernel), and
+    every leaf of the last step holds a nonzero gradient (in the reference's
+    reduced step every leaf of this family does; a detached cast or a
+    forward-only kernel would leave leaves without one).  Returns the
+    path's launch counts.
+    """
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data import PipelineConfig, SyntheticPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.runtime.train import make_train_step
+
+    t = TRAIN
+    tokens = t["batch"] * t["seq"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, history = run_training(LM_ARCH, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                                  reduced=False, num_microbatches=t["microbatches"],
+                                  log_every=t["steps"], n_layers=t["n_layers"], device=DEVICE)
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=t["n_layers"])
+    n_params = sum(p.numel() for p in state.params.parameters())
+    if n_params != TRAIN_PARAMS or n_params != param_count(cfg)["total"]:
+        raise AssertionError(f"training: {n_params} parameters, expected {TRAIN_PARAMS}")
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    if not all(np.isfinite(h[k]) for h in history for k in ("loss", "grad_norm")):
+        raise AssertionError(f"training: a loss or grad norm is not finite: {history}")
+    no_grad = [n for n, p in state.params.named_parameters()
+               if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    if no_grad:
+        raise AssertionError(f"training: leaves without a gradient: {no_grad}")
+    steady_s = statistics.median(h["seconds"] for h in history[1:])
+    out = {"phase": "training", "arch": cfg.name, "layers": cfg.n_layers,
+           "of_layers": get_config(LM_ARCH).n_layers, "params": n_params,
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "remat": cfg.remat, "batch": t["batch"], "seq": t["seq"],
+           "microbatches": t["microbatches"], "steps": [
+               {"step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
+                "lr": h["lr"], "wall_ms": h["seconds"] * 1e3} for h in history],
+           "steady_step_ms": steady_s * 1e3, "tokens_per_s": tokens / steady_s,
+           "peak_gib": peak_gib, "launches": launches,
+           "bound": _train_bound(cfg, tokens, t["batch"], t["seq"], n_params)}
+
+    # One more step under the profiler, on the state the run left.
+    model = Model(cfg, DEVICE)
+    step_fn = make_train_step(model, AdamWConfig(lr=warmup_cosine(3e-4, 2, t["steps"])),
+                              num_microbatches=t["microbatches"])
+    pipe = SyntheticPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                                            global_batch=t["batch"]))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in pipe.batch(t["steps"]).items()}
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], metrics = step_fn(holder["state"], batch)
+        return metrics
+
+    device = _device_ms(one_step, 1)
+    busy = sum(device.values())
+    gemm = sum(v for k, v in device.items() if "gemm" in k.lower())
+    out["profile"] = {"device_busy_ms": busy, "busy_share": busy / out["steady_step_ms"],
+                      "idle_share": 1.0 - busy / out["steady_step_ms"],
+                      "gemm_ms": gemm, "device_kernels": len(device),
+                      "device_top": sorted(device.items(), key=lambda kv: -kv[1])[:16]}
+    _emit(out)
+    del state, holder, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _max_rel_leaf_err(got, want) -> float:
+    """The largest of each leaf's max |got - want| over its max |want|."""
+    errs = [float((g.float().cpu() - w.float()).abs().max() / max(float(w.abs().max()), 1e-30))
+            for g, w in zip(got, want)]
+    return max(errs)
+
+
+def _restart_child(root: str) -> None:
+    """The reference's restart test on the card, in a process of its own
+    (``CUBLAS_WORKSPACE_CONFIG`` must be set before CUDA starts): an
+    uninterrupted run and one that fails at ``RESTART_FAIL_AT``, under
+    deterministic algorithms; prints one JSON line."""
+    t0 = time.perf_counter()
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.launch.train import run_training
+
+    t1 = time.perf_counter()
+    ok, _ = run_training(ckpt_dir=f"{root}/a", device=DEVICE, **RESTART)
+    t2 = time.perf_counter()
+    ft, _ = run_training(ckpt_dir=f"{root}/b", fail_at=RESTART_FAIL_AT, device=DEVICE,
+                         **RESTART)
+    differ = [n for (n, x), (_, y) in zip(ok.params.named_parameters(),
+                                          ft.params.named_parameters()) if not torch.equal(x, y)]
+    print(json.dumps({"bit_exact": not differ, "differing": differ, "step": int(ft.step),
+                      "leaves": len(list(ok.params.parameters())),
+                      "child_s": {"import": t1 - t0, "uninterrupted": t2 - t1,
+                                  "interrupted": time.perf_counter() - t2}}))
+
+
+@contextlib.contextmanager
+def restart_check_beside():
+    """The reference's restart test (reduced granite-3-8b, 16 steps, a
+    checkpoint every 5, a failure at step 12) on the card under
+    deterministic algorithms, in a process of its own that runs beside the
+    body of the ``with`` (it is deterministic, so sharing the card moves its
+    time, not its bits); on leaving, the interrupted run's final weights
+    must equal the uninterrupted run's bit for bit (phase
+    ``train_restart``).  The process is killed if the body raises."""
+    import os
+    import tempfile
+
+    root = tempfile.TemporaryDirectory()
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--restart-check",
+                              root.name], env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        yield
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        root.cleanup()
+    if child.returncode != 0:
+        raise AssertionError(f"restart check failed: {stderr[-4000:]}")
+    restart = json.loads(stdout.strip().splitlines()[-1])
+    if not restart["bit_exact"] or restart["step"] != RESTART["steps"]:
+        raise AssertionError(f"restart on the card is not bit-exact: {restart}")
+    _emit({"phase": "train_restart", **RESTART, "fail_at": RESTART_FAIL_AT, **restart,
+           "seconds": time.perf_counter() - t0})
+
+
+def _check_train_vs_serve():
+    """(1) of :func:`phase_train_checks`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+
+    v = TRAIN_VS_SERVE
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=v["n_layers"],
+                              compute_dtype="float32")
+    model = Model(cfg, DEVICE)
+    params = model.init(2)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(2, cfg.vocab_size, (v["batch"], v["seq"]))).to(DEVICE)}
+    with torch.no_grad():
+        reset_launch_counts()
+        h_train, _ = tf.forward_train(tf.cast_params_for_train(params, cfg), cfg, batch)
+        train_launches = launch_counts()
+        reset_launch_counts()
+        h_last, _ = tf.forward_prefill(model.compute_params(params), cfg, batch, v["seq"])
+        serve_launches = {k: n for k, n in launch_counts().items() if n}
+    err = (h_train[:, -1] - h_last).abs().max().item()
+    want = {"flash_attention": cfg.n_layers, "moe_mlp": cfg.n_layers}
+    if any(train_launches.values()) or serve_launches != want:
+        raise AssertionError(f"train vs serve: launches {train_launches} / {serve_launches}")
+    if not torch.isfinite(h_last).all() or err > E2E_TOL:
+        raise AssertionError(f"train vs serve: last hidden states differ by {err}")
+    out = {**v, "max_abs_err": err, "h_abs_max": h_last.abs().max().item(),
+           "serve_launches": serve_launches}
+    del model, params, h_train, h_last
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_reduced_steps():
+    """(2) of :func:`phase_train_checks`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.serve import prefill_inputs
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    opt = AdamWConfig(lr=CHECK_LR)
+    out = {}
+    for arch in list_archs():
+        cfg = get_config(arch, reduced=True)
+        cpu, card = Model(cfg, "cpu"), Model(cfg, DEVICE)
+        s_cpu, s_card = init_train_state(cpu, opt, 0), init_train_state(card, opt, 0)
+        with torch.no_grad():
+            for a, b in zip(s_card.params.parameters(), s_cpu.params.parameters()):
+                a.copy_(b)
+        rng = np.random.default_rng(3)
+        prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (4, 32)))
+        inputs = prefill_inputs(cfg, prompt, rng, positions3=mrope_grid_streams(32),
+                                enc_len=32 + 5)
+        inputs["labels"] = torch.from_numpy(rng.integers(2, cfg.vocab_size, (4, 32)))
+        s_cpu, m_cpu = make_train_step(cpu, opt, num_microbatches=2)(s_cpu, inputs)
+        s_card, m_card = make_train_step(card, opt, num_microbatches=2)(
+            s_card, {k: x.to(DEVICE) for k, x in inputs.items()})
+        pairs = list(zip(s_card.params.parameters(), s_cpu.params.parameters()))
+        grads = _max_rel_leaf_err([a.grad for a, _ in pairs], [b.grad for _, b in pairs])
+        weights = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in pairs)
+        loss = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+        out[arch] = {"loss": float(m_cpu["loss"]), "loss_err": loss, "grad_rel_err": grads,
+                     "weight_err": weights, "leaves": len(pairs)}
+        if max(loss, grads, weights) > E2E_TOL or not np.isfinite(float(m_card["loss"])):
+            raise AssertionError(f"{arch} reduced train step: card vs CPU {out[arch]}")
+    return out
+
+
+def phase_train_checks():
+    """The trained model against the served one, and the card against the CPU.
+
+    (1) ``train_vs_serve``: qwen3-moe-30b-a3b at its published widths in
+    float32, layers 0-1, B 2 x 2,048 (``TRAIN_VS_SERVE``): ``forward_train``'s
+    last-position hidden state (chunked attention, einsum experts, no kernel)
+    against ``forward_prefill``'s ``h_last`` (the flash and expert-FFN
+    kernels) on the same weights and tokens, within E2E_TOL.  (2) One
+    ``make_train_step`` step (2 microbatches of 2 x 32) of every registered
+    arch's reduced config on the card against the CPU, TF32 off, the same
+    weights (drawn on the CPU): the loss, every gradient leaf (relative to
+    its largest magnitude) and the updated weights within E2E_TOL.
+    """
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        _emit({"phase": "train_checks", "tf32": False, "tol": E2E_TOL,
+               "train_vs_serve": _check_train_vs_serve(), "reduced_step": _check_reduced_steps()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 # The examples' runs in the ``examples`` phase: (name, arguments after --device).
 EXAMPLES = (("quickstart", []), ("spmv_cg", []), ("serve_lm", []),
-            ("serve_lm", ["--arch", SSM_ARCH]), ("serve_lm", ["--arch", HYBRID_ARCH]))
+            ("serve_lm", ["--arch", SSM_ARCH]), ("serve_lm", ["--arch", HYBRID_ARCH]),
+            ("train_lm", ["--steps", "20"]))
 
 
 def phase_examples():
@@ -1369,7 +1705,7 @@ def phase_examples():
         lines = buf.getvalue().splitlines()
         if not lines or lines[-1] != f"{name} OK":
             raise AssertionError(f"example {name} {extra}: last line {lines[-1:]}")
-        key = name if not extra else f"{name}_{extra[-1]}"
+        key = name if not extra or name == "train_lm" else f"{name}_{extra[-1]}"
         if name == "quickstart":
             rec, want = {"max_abs_err": result}, {"spmv_software_cache": 1, "ep_combine": 1}
         elif name == "spmv_cg":
@@ -1377,6 +1713,10 @@ def phase_examples():
                                           "optimized_calls", "optimize_time_s")}
             n = result["optimized_calls"]
             want = {"spmv_software_cache": n, "ep_combine": n} if n else {}
+        elif name == "train_lm":
+            rec = {"steps": len(result), "loss_first": result[0]["loss"],
+                   "loss_last": result[-1]["loss"]}
+            want = {}  # the train path runs no kernel
         else:
             cfg = get_config(extra[-1] if extra else "granite-3-8b", reduced=True)
             tokens, stats = result
@@ -1406,6 +1746,11 @@ def _set_launches(entries, by_path) -> None:
 
 def main() -> int:
     import torch
+
+    if sys.argv[1:2] == ["--restart-check"]:  # the restart check's own process
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        _restart_child(sys.argv[2])
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run",
@@ -1478,8 +1823,12 @@ def main() -> int:
         if path == "lm_serving":
             phase_lm_checks()
             torch.cuda.empty_cache()
-    _set_launches(entries, by_path)
-    phase_examples()
+    by_path["training"] = phase_training()
+    with restart_check_beside():
+        phase_train_checks()
+        torch.cuda.empty_cache()
+        _set_launches(entries, by_path)
+        phase_examples()
     _emit({"kernels": entries})
     _emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ through TMA and ``wgmma``, float32 on the CUDA cores) and is launched through
 ctypes on PyTorch's current stream.  Given CUDA tensors the wrapper launches
 it or raises; given CPU tensors it runs the twin
 :func:`~repro_torch.kernels.ref.flash_attention_ref`.  The wrapper counts its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute.  It is forward only, on either
+device: with grad mode on, an input that requires grad raises.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     through a TMA ring, two consumer warpgroups run both products on
     ``wgmma``; causal CTAs stop at the diagonal tile.
     """
+    _build.check_forward_only("flash_attention", q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError("q must be (B, H, S, Dh) and k, v (B, Hkv, T, Dh)")
     b, h, s, dh = q.shape

@@ -13,7 +13,9 @@ SwiGLU in its epilogue, then down; bf16 on the tensor cores through TMA and
 PyTorch's current stream.  Given CUDA tensors the wrapper launches them or
 raises; given CPU tensors it runs the twin
 :func:`~repro_torch.kernels.ref.moe_mlp_ref`.  Each call adds one to the
-wrapper's ``launches`` attribute (one call, two kernels).
+wrapper's ``launches`` attribute (one call, two kernels).  It is forward
+only, on either device: with grad mode on, an input that requires grad
+raises.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ def moe_mlp(x_packed, w_gate, w_up, w_down) -> torch.Tensor:
     a CTA whose expert's input rows are all zero writes +0 without reading
     that expert's weights.
     """
+    _build.check_forward_only("moe_mlp", x_packed, w_gate, w_up, w_down)
     if x_packed.dim() != 3:
         raise ValueError("x_packed must be (E, C, D)")
     e, c, d = x_packed.shape

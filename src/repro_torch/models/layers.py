@@ -16,10 +16,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "apply_mrope",
     "apply_rope",
+    "chunked_attention",
     "decode_attention",
     "dot_f32",
     "init_embedding",
@@ -122,7 +124,9 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections, theta: floa
 
 def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     """SwiGLU feed-forward: gate and up in float32, ``h`` and the down
-    product in the activation type."""
+    product in the activation type.  Leading axes batch, so the training
+    path runs every expert at once over ``(E, C, D)`` slabs and ``(E, D, F)``
+    weights."""
     h = (F.silu(dot_f32(x, w_gate)) * dot_f32(x, w_up)).to(x.dtype)
     return h @ w_down
 
@@ -130,6 +134,60 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Attention helpers
 # ---------------------------------------------------------------------------
+
+
+def _kv_step(qf, kb, vb, m_prev, l_prev, acc, k0: int, t: int, causal: bool, pad: bool):
+    """One KV chunk of :func:`chunked_attention`: the running max ``m``, sum
+    ``l`` and accumulator ``acc`` after keys ``k0 .. k0 + kc``.  ``qf`` is
+    ``(B, Hkv, G, S, Dh)`` float32, ``kb``/``vb`` ``(B, Hkv, kc, Dh)``."""
+    s_len, kc = qf.shape[3], kb.shape[2]
+    sblk = (qf @ kb.float().unsqueeze(2).transpose(-1, -2)) * (1.0 / math.sqrt(qf.shape[-1]))
+    kpos = k0 + torch.arange(kc, device=qf.device)
+    if causal or pad:
+        mask = (kpos < t).expand(s_len, kc)
+        if causal:
+            mask = mask & (torch.arange(s_len, device=qf.device)[:, None] >= kpos[None, :])
+        sblk = sblk.masked_fill(~mask, float("-inf"))
+    m_new = torch.maximum(m_prev, sblk.amax(dim=-1))
+    safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(sblk - safe_m[..., None])
+    p = torch.where(torch.isfinite(sblk), p, 0.0)
+    alpha = torch.where(torch.isfinite(m_prev), torch.exp(m_prev - safe_m), 0.0)
+    l_new = l_prev * alpha + p.sum(dim=-1)
+    pv = p.to(vb.dtype).float() @ vb.float().unsqueeze(2)
+    return m_new, l_new, acc * alpha[..., None] + pv
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks; never builds the (S, T) scores.
+
+    q: ``(B, H, S, Dh)``; k, v: ``(B, Hkv, T, Dh)`` with ``Hkv | H`` (q head
+    h reads kv head ``h // (H // Hkv)``; ``Hkv = H`` is the reference's
+    head-repeated input).  Returns ``(B, H, S, Dh)`` in q's type.  The
+    reference's arithmetic: scores, ``m``, ``l`` and ``acc`` in float32, ``p``
+    rounded to V's type before the ``p v`` product, ``l`` clamped at 1e-20;
+    a ragged T is padded and masked; causality by absolute offsets
+    (``qpos >= kpos``), so cross-attention (``causal=False``) shares it.
+    Each KV step runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): its ``(B, H, S, kc)`` probabilities are recomputed
+    in the backward pass, not kept for every step.
+    """
+    b, h, s, dh = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    kv_chunk = min(kv_chunk, t)
+    pad = (-t) % kv_chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    qf = q.float().reshape(b, hkv, h // hkv, s, dh)
+    m = torch.full(qf.shape[:-1], float("-inf"), device=q.device)
+    l = torch.zeros(qf.shape[:-1], device=q.device)
+    acc = torch.zeros(qf.shape, device=q.device)
+    for k0 in range(0, t + pad, kv_chunk):
+        m, l, acc = checkpoint(_kv_step, qf, k[:, :, k0:k0 + kv_chunk], v[:, :, k0:k0 + kv_chunk],
+                               m, l, acc, k0, t, causal, bool(pad), use_reentrant=False)
+    out = acc / l.clamp(min=1e-20)[..., None]
+    return out.reshape(b, h, s, dh).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:

@@ -87,7 +87,10 @@ def ssd_chunked(
 
     # 1. Intra-chunk (diagonal blocks): attention-like quadratic form.
     scores = _segsum(da).exp_()  # (B,nc,G,Hg,L,S) lower-triangular decays
-    scores.mul_(torch.einsum("bclgn,bcsgn->bcgls", cc, bc).unsqueeze(3))
+    cb = torch.einsum("bclgn,bcsgn->bcgls", cc, bc).unsqueeze(3)
+    # In place when nothing is differentiated (serving's peak); autograd
+    # needs the decays exp_ saved, so a product it records is a new tensor.
+    scores = scores * cb if scores.requires_grad or cb.requires_grad else scores.mul_(cb)
     y = torch.einsum("bcgrls,bcsgrp->bclgrp", scores, xdt)
     del scores
 

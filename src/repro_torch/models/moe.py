@@ -12,7 +12,14 @@ The serving path's MoE FFN, for one device (the reference's
   3. pairs past the expert's capacity are dropped, the kept ones copied into
      per-expert capacity slabs ``(E, C, D)`` (one pair per slot, so the copy
      is exact in any order; dropped pairs go to a spare row that is cut off);
-  4. the expert SwiGLU over the slabs through :func:`repro_torch.kernels.moe_mlp`;
+  4. the expert SwiGLU over the slabs: through the forward-only kernel
+     :func:`repro_torch.kernels.moe_mlp` when serving, through
+     :func:`~repro_torch.models.layers.swiglu` batched over the experts
+     when training (``train=True``): the reference's three ``einsum``
+     products (``src/repro/models/moe.py:269-272``; gate and up in float32,
+     ``silu(gate) * up`` and the down product in the activation type) in
+     differentiable PyTorch, as the reference trains through them and not
+     through its kernel;
   5. each kept pair's output gathered back and combined with its router
      weight in float32, plus the shared experts under their sigmoid gate.
 
@@ -29,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import moe_mlp
-from .layers import dot_f32, init_linear
+from .layers import dot_f32, init_linear, swiglu
 
 __all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "recorded_routing",
            "route", "router_load_balancing_loss"]
@@ -139,8 +146,12 @@ def moe_ffn(
     *,
     norm_topk: bool = True,
     expert_perm: Optional[torch.Tensor] = None,
+    train: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (T, D), aux load-balancing loss)."""
+    """Returns (output (T, D), aux load-balancing loss).
+
+    ``train`` runs the experts through ``swiglu`` (differentiable) in place
+    of the ``moe_mlp`` kernel (forward only)."""
     t, d = x.shape
     probs, weights, ids = route(x, params["router"], top_k, norm_topk)
     aux = router_load_balancing_loss(probs, ids, n_experts)
@@ -150,9 +161,15 @@ def moe_ffn(
         _routing.append(ids)
 
     slab, rows, keep = dispatch(x, ids, n_experts, capacity)
-    out_slab = moe_mlp(slab, params["w_gate"], params["w_up"], params["w_down"])
+    experts = swiglu if train else moe_mlp
+    out_slab = experts(slab, params["w_gate"], params["w_up"], params["w_down"])
 
-    y_pairs = out_slab.view(n_experts * capacity, d)[rows.clamp(max=n_experts * capacity - 1)]
+    # A dropped pair reads a slab row of its own (its pair index; the value is
+    # masked out), not one shared row: in the backward pass the gather's
+    # index-add would otherwise sum every dropped pair into one row, in turn.
+    n_rows = n_experts * capacity
+    spread = torch.arange(t * top_k, device=x.device) % n_rows
+    y_pairs = out_slab.view(n_rows, d)[torch.where(keep, rows, spread)]
     y_pairs = y_pairs.float().masked_fill(~keep[:, None], 0.0)  # (T * k, D)
     y = (y_pairs * weights.reshape(t * top_k, 1)).reshape(t, top_k, d).sum(dim=1)
     y = y.to(x.dtype)

@@ -1,12 +1,19 @@
 """Weights of the port's models as ``nn.Module`` trees, and carrying the reference's across.
 
 :class:`Params` holds one nested dict of weights as a module: tensor leaves
-become (frozen) parameters under the reference's names, sub-dicts child
-``Params``, and lists of dicts an ``nn.ModuleList`` (one module per layer,
-where the reference stacks layers on a leading axis for ``lax.scan``).
-:func:`params_from_reference` turns the JAX package's parameter pytree,
-given as numpy arrays, into that tree, so both packages compute with the
-same weights.
+become parameters under the reference's names, sub-dicts child ``Params``,
+and lists of dicts an ``nn.ModuleList`` (one module per layer, where the
+reference stacks layers on a leading axis for ``lax.scan``).  Serving holds
+them frozen; training makes the masters trainable with
+``params.requires_grad_()`` (``nn.Module``'s own) and reads products of them
+through :meth:`Params.graph_tree`, which keeps them in autograd's graph.
+:func:`params_from_reference` turns the JAX package's parameter pytree
+(or a tree of the same structure, such as AdamW's moments), given as numpy
+arrays, into that tree, so both packages compute with the same weights;
+:meth:`Params.reference_tree` and :func:`from_reference_layout` go between
+the port's per-layer modules and the reference's stacked layout, which is
+the layout of a checkpoint.  :func:`tree_map` and :func:`tree_leaves` walk
+nested dicts, lists and ``Params`` in one fixed order.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["Params", "params_from_reference"]
+__all__ = ["Params", "from_reference_layout", "map_named", "params_from_reference", "tree_leaves",
+           "tree_map"]
 
 
 class Params(nn.Module):
@@ -41,27 +49,115 @@ class Params(nn.Module):
         return name in self._parameters or name in self._modules
 
     def tree(self) -> dict:
-        """The nested dict of plain tensors this module holds."""
+        """The nested dict of plain tensors this module holds (detached aliases
+        of the parameters: writing into one writes the weight)."""
         out: dict = {name: p.data for name, p in self._parameters.items()}
         for name, m in self._modules.items():
             out[name] = [b.tree() for b in m] if isinstance(m, nn.ModuleList) else m.tree()
         return out
 
+    def graph_tree(self) -> dict:
+        """The nested dict of the parameters themselves: what is computed from
+        them stays in autograd's graph, so gradients reach them."""
+        out: dict = dict(self._parameters)
+        for name, m in self._modules.items():
+            out[name] = ([b.graph_tree() for b in m] if isinstance(m, nn.ModuleList)
+                         else m.graph_tree())
+        return out
+
     def map(self, fn: Callable[[str, torch.Tensor], torch.Tensor]) -> "Params":
-        """A new tree of ``fn(leaf_name, leaf)``; leaves ``fn`` returns as they are are shared."""
-        def walk(t):
-            if isinstance(t, dict):
-                return {k: (fn(k, v) if isinstance(v, torch.Tensor) else walk(v))
-                        for k, v in t.items()}
-            return [walk(v) for v in t]
-        return Params(walk(self.tree()))
+        """A new (frozen) tree of ``fn(leaf_name, leaf)``; leaves ``fn`` returns
+        as they are are shared."""
+        return Params(map_named(self.tree(), fn))
+
+    def reference_tree(self, leaf: Callable = lambda t: t) -> dict:
+        """This tree in the reference's stacked layout: each list of modules
+        becomes one subtree whose leaves stack the modules' ``leaf(weight)`` on
+        a new leading axis (``torch.stack``, or ``np.stack`` where ``leaf``
+        returns numpy arrays)."""
+        out: dict = {name: leaf(p.data) for name, p in self._parameters.items()}
+        for name, m in self._modules.items():
+            if isinstance(m, nn.ModuleList):
+                subs = [b.reference_tree(leaf) for b in m]
+                out[name] = tree_map(lambda *xs: _stack(xs), *subs)
+            else:
+                out[name] = m.reference_tree(leaf)
+        return out
+
+
+def _stack(xs):
+    return np.stack(xs) if isinstance(xs[0], np.ndarray) else torch.stack(xs)
+
+
+def map_named(tree, fn: Callable[[str, torch.Tensor], torch.Tensor]):
+    """A nested dict/list of ``fn(leaf_name, leaf)`` over a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return {k: (fn(k, v) if isinstance(v, torch.Tensor) else map_named(v, fn))
+                for k, v in tree.items()}
+    return [map_named(v, fn) for v in tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of trees of its structure.
+
+    Dicts (in sorted key order, as ``jax.tree_util`` walks them, so that two
+    trees of the same names walk alike whatever order built them), lists and
+    tuples are walked; a :class:`Params` is walked as its :meth:`~Params.tree`
+    and comes back as a (frozen) ``Params``; anything else is a leaf."""
+    if isinstance(tree, Params):
+        rest = [r.tree() if isinstance(r, Params) else r for r in rest]
+        return Params(tree_map(fn, tree.tree(), *rest))
+    rest = [r.tree() if isinstance(r, Params) else r for r in rest]
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    if isinstance(tree, Params):
+        tree = tree.tree()
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _from_numpy(a) -> torch.Tensor:
+    """A writable tensor copy of a numpy array; bfloat16 (``ml_dtypes``) by its bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_reference_layout(tree: dict, like: Params, device=None) -> Params:
+    """The inverse of :meth:`Params.reference_tree`: a ``Params`` of ``like``'s
+    structure whose per-layer weights are copies of the slices of ``tree``'s
+    stacked tensor leaves, on ``device`` (each ``like`` leaf's device if
+    None), frozen or trainable as ``like`` is."""
+    def walk(t, mod, index):
+        out = {}
+        for name, p in mod._parameters.items():
+            out[name] = t[name][index].to(device or p.device, copy=True)
+        for name, m in mod._modules.items():
+            out[name] = ([walk(t[name], b, index + (i,)) for i, b in enumerate(m)]
+                         if isinstance(m, nn.ModuleList) else walk(t[name], m, index))
+        return out
+    trainable = any(p.requires_grad for p in like.parameters())
+    return Params(walk(tree, like, ())).requires_grad_(trainable)
 
 
 def params_from_reference(tree: dict, cfg, device) -> Params:
     """The port's weights from the JAX package's param pytree as numpy arrays.
 
     ``tree`` is ``repro.models.Model(cfg).init(key)`` with every leaf turned
-    into a numpy array (``jax.tree.map(np.asarray, params)``).  Its stacked
+    into a numpy array (``jax.tree.map(np.asarray, params)``), or a tree of
+    its structure such as AdamW's ``m`` and ``v`` (bfloat16 leaves are
+    carried by their bits).  Its stacked
     subtrees become lists of modules: ``blocks`` and ``encoder`` carry a
     leading layer axis (one module per layer); ``periods`` (``hybrid``) a
     leading period axis, and within a period ``mamba``, ``moe`` and ``mlp`` a
@@ -73,7 +169,7 @@ def params_from_reference(tree: dict, cfg, device) -> Params:
     def convert(t, index=()):
         if isinstance(t, dict):
             return {k: convert(v, index) for k, v in t.items()}
-        return torch.from_numpy(np.array(t[index])).to(dev)  # a writable copy
+        return _from_numpy(t[index]).to(dev)
 
     def layers(t, n, index=()):
         return [convert(t, index + (i,)) for i in range(n)]

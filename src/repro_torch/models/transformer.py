@@ -19,16 +19,28 @@ The cache holds per-layer K/V (``dense``, ``moe``), conv and SSD states
 (``ssm``), both per period (``hybrid``), or K/V beside the cross-attention's
 ``cross_k``/``cross_v`` (``encdec``).  ``forward_decode`` updates the cache in
 place (the reference returns a new cache; the port saves the copy).
+
+Training (``forward_train``, every family) runs no kernel, as the
+reference's ``forward_train`` runs none: attention is the differentiable
+:func:`~repro_torch.models.layers.chunked_attention` and the experts the
+``einsum`` products, :func:`~repro_torch.models.layers.swiglu` over the slabs.  With
+``cfg.remat`` each block (each period for ``hybrid``) runs under
+``torch.utils.checkpoint``, the reference's ``_maybe_remat``.  Its compute
+copies come from :func:`cast_params_for_train`, which casts inside
+autograd's graph so that gradients reach the float32 masters.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention
 from . import mamba2 as m2
 from .layers import (
     apply_mrope,
     apply_rope,
+    chunked_attention,
     decode_attention,
     dot_f32,
     init_embedding,
@@ -38,19 +50,23 @@ from .layers import (
     swiglu,
 )
 from .moe import init_moe_params, moe_ffn
-from .params import Params
+from .params import Params, map_named
 
 __all__ = [
+    "attn_block",
     "attn_block_decode",
     "attn_block_prefill",
     "cast_params_for_compute",
+    "cast_params_for_train",
     "check_supported",
     "encode",
     "forward_decode",
     "forward_prefill",
+    "forward_train",
     "init_cache",
     "init_params",
     "lm_head",
+    "mamba_block",
     "mlp_block",
     "moe_block",
     "moe_capacity",
@@ -81,12 +97,7 @@ def check_supported(cfg) -> None:
 _KEEP_F32 = ("router", "gate", "dt_bias", "A_log", "D")
 
 
-def cast_params_for_compute(params: Params, cfg) -> Params:
-    """Mixed precision: compute-type copies of the (f32 master) weights.
-
-    Leaves named in ``_KEEP_F32`` and leaves already of the compute type are
-    shared with ``params``, not copied.
-    """
+def _compute_cast(cfg):
     cd = _cdtype(cfg)
 
     def one(name, p):
@@ -94,7 +105,25 @@ def cast_params_for_compute(params: Params, cfg) -> Params:
             return p
         return p.to(cd)
 
-    return params.map(one)
+    return one
+
+
+def cast_params_for_compute(params: Params, cfg) -> Params:
+    """Mixed precision: compute-type copies of the (f32 master) weights.
+
+    Leaves named in ``_KEEP_F32`` and leaves already of the compute type are
+    shared with ``params``, not copied.  The copies are frozen, cut from
+    the masters' graph: serving's.
+    """
+    return params.map(_compute_cast(cfg))
+
+
+def cast_params_for_train(params: Params, cfg) -> dict:
+    """The same compute-type copies as a nested dict cast inside autograd's
+    graph, so that the gradients of the copies reach trainable masters (the
+    reference casts inside ``loss_fn``).  Leaves kept as they are are the
+    masters themselves."""
+    return map_named(params.graph_tree(), _compute_cast(cfg))
 
 
 def moe_capacity(cfg, n_tokens: int) -> int:
@@ -301,6 +330,26 @@ def attn_block_decode(p, cfg, h, k_cache, v_cache, pos: int, *, positions3=None,
     return h + out @ p["wo"], k_cache, v_cache
 
 
+def attn_block(p, cfg, h, positions, *, causal: bool = True, memory=None,
+               memory_positions=None, positions3=None):
+    """Full-sequence attention of the training path, residual included:
+    self-attention over ``h``, or cross-attention over ``memory`` (keys roped
+    at ``memory_positions``, plain RoPE, non-causal), through the
+    differentiable :func:`chunked_attention` on un-repeated GQA K/V."""
+    x = rms_norm(h, p["norm"], cfg.norm_eps)
+    q = _rope_q(cfg, _project_q(p, cfg, x), positions, positions3)
+    if memory is None:
+        k, v = _project_kv(p, cfg, x)
+        k = _rope_k(cfg, k, positions, positions3)
+    else:
+        k, v = _project_kv(p, cfg, memory)
+        k = _rope_k(cfg, k, memory_positions)
+    out = chunked_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                            causal=causal and memory is None, kv_chunk=cfg.attn_chunk_kv)
+    b, hq, s, dh = out.shape
+    return h + out.transpose(1, 2).reshape(b, s, hq * dh) @ p["wo"]
+
+
 def _cross_prefill(p, cfg, h, positions, memory, memory_positions):
     """Cross-attention of the decoder over the encoder's output, residual
     included: q roped at the decoder positions, k at the memory positions
@@ -323,11 +372,16 @@ def mlp_block(p, cfg, h):
     return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def moe_block(p, cfg, h, capacity: int):
+def moe_block(p, cfg, h, capacity: int, train: bool = False):
     b, s, d = h.shape
     x = rms_norm(h, p["norm"], cfg.norm_eps).reshape(b * s, d)
-    y, aux = moe_ffn(x, p["moe"], cfg.moe.n_experts, cfg.moe.top_k, capacity)
+    y, aux = moe_ffn(x, p["moe"], cfg.moe.n_experts, cfg.moe.top_k, capacity, train=train)
     return h + y.reshape(b, s, d), aux
+
+
+def mamba_block(p, cfg, h):
+    x = rms_norm(h, p["norm"], cfg.norm_eps)
+    return h + m2.mamba_mixer(p["mamba"], x, cfg.ssm)
 
 
 def _ffn(p, cfg, h, kind: str, capacity: int):
@@ -409,7 +463,7 @@ def _embed_in(params, cfg, batch: dict):
     if "embeds" in batch:
         h = batch["embeds"]
     else:
-        h = params["embed"][batch["tokens"]]
+        h = F.embedding(batch["tokens"], params["embed"])
     h = h.to(_cdtype(cfg))
     positions = batch.get("positions")
     if positions is None:
@@ -417,15 +471,103 @@ def _embed_in(params, cfg, batch: dict):
     return h, positions, batch.get("positions3")
 
 
-def encode(params, cfg, enc_embeds):
-    """The bidirectional encoder stack (``encdec``): ``(memory, positions)``."""
+def encode(params, cfg, enc_embeds, train: bool = False):
+    """The bidirectional encoder stack (``encdec``): ``(memory, positions)``.
+
+    Serving's attention is the flash kernel; ``train`` runs the training
+    path's differentiable attention, each layer rematerialised with
+    ``cfg.remat``."""
     b, s, _ = enc_embeds.shape
     positions = _positions(b, s, enc_embeds.device)
     h = enc_embeds.to(_cdtype(cfg))
     for blk in params["encoder"]:
-        h = attn_block_prefill(blk["attn"], cfg, h, positions, causal=False)[0]
-        h = mlp_block(blk["ffn"], cfg, h)
+        if train:
+            h = _remat(cfg, _encoder_layer, blk, cfg, h, positions)
+        else:
+            h = attn_block_prefill(blk["attn"], cfg, h, positions, causal=False)[0]
+            h = mlp_block(blk["ffn"], cfg, h)
     return rms_norm(h, params["enc_final_norm"], cfg.norm_eps), positions
+
+
+def _encoder_layer(blk, cfg, h, positions):
+    h = attn_block(blk["attn"], cfg, h, positions, causal=False)
+    return mlp_block(blk["ffn"], cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (training) per family
+# ---------------------------------------------------------------------------
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``: its
+    activations are recomputed in the backward pass, not kept."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _decoder_layer(lp, cfg, h, positions, positions3, ffn, cap):
+    """One ``dense``/``moe`` layer: ``(h, aux)``."""
+    h = attn_block(lp["attn"], cfg, h, positions, positions3=positions3)
+    if ffn == "moe":
+        return moe_block(lp["ffn"], cfg, h, cap, train=True)
+    return mlp_block(lp["ffn"], cfg, h), h.new_zeros((), dtype=torch.float32)
+
+
+def _period(pp, cfg, h, positions, cap):
+    """One ``hybrid`` period: ``(h, aux summed over its MoE layers)``."""
+    aux = h.new_zeros((), dtype=torch.float32)
+    for mixer, i, ffn, j in period_layers(cfg):
+        if mixer == "attn":
+            h = attn_block(pp["attn"], cfg, h, positions)
+        else:
+            h = mamba_block(pp["mamba"][i], cfg, h)
+        if ffn == "moe":
+            h, a = moe_block(pp["moe"][j], cfg, h, cap, train=True)
+            aux = aux + a
+        elif ffn == "mlp":
+            h = mlp_block(pp["mlp"][j], cfg, h)
+    return h, aux
+
+
+def _encdec_layer(lp, cfg, h, positions, memory, mem_pos):
+    h = attn_block(lp["attn"], cfg, h, positions)
+    h = attn_block(lp["cross"], cfg, h, positions, memory=memory, memory_positions=mem_pos,
+                   causal=False)
+    return mlp_block(lp["ffn"], cfg, h)
+
+
+def forward_train(params, cfg, batch: dict):
+    """Returns (final-normed hidden states (B, S, D), aux loss (a float32 scalar)).
+
+    ``params`` are compute copies from :func:`cast_params_for_train` (or any
+    tree of the same names); ``batch`` as for :func:`forward_prefill`.  The
+    aux loss sums the MoE layers' load-balancing losses (0 without MoE).
+    """
+    check_supported(cfg)
+    h, positions, positions3 = _embed_in(params, cfg, batch)
+    b, s, _ = h.shape
+    cap = moe_capacity(cfg, b * s) if cfg.moe is not None else 0
+    aux = h.new_zeros((), dtype=torch.float32)
+
+    if cfg.family == "ssm":
+        for lp in params["blocks"]:
+            h = _remat(cfg, mamba_block, lp, cfg, h)
+    elif cfg.family == "hybrid":
+        for pp in params["periods"]:
+            h, a = _remat(cfg, _period, pp, cfg, h, positions, cap)
+            aux = aux + a
+    elif cfg.family == "encdec":
+        memory, mem_pos = encode(params, cfg, batch["enc_embeds"], train=True)
+        for lp in params["blocks"]:
+            h = _remat(cfg, _encdec_layer, lp, cfg, h, positions, memory, mem_pos)
+    else:
+        ffn = cfg.ffn_kinds()[0]
+        for lp in params["blocks"]:
+            h, a = _remat(cfg, _decoder_layer, lp, cfg, h, positions, positions3, ffn, cap)
+            aux = aux + a
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward_prefill(params, cfg, batch: dict, max_len: int):
@@ -490,7 +632,7 @@ def forward_decode(params, cfg, cache: dict, batch: dict, pos: int):
     carries it for the Mamba layers).  Returns (logits (B, vocab) in float32,
     cache updated in place)."""
     check_supported(cfg)
-    h = batch["embeds"] if "embeds" in batch else params["embed"][batch["tokens"]]
+    h = batch["embeds"] if "embeds" in batch else F.embedding(batch["tokens"], params["embed"])
     h = h.to(_cdtype(cfg))
     pos = int(pos)
     cap = moe_capacity(cfg, h.shape[0]) if cfg.moe is not None else 0

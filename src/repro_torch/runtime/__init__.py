@@ -1,13 +1,19 @@
-"""Request layer of the port: typed EP-SpMV requests, LM serving steps, and
-the fault-tolerance pieces replicated serving stands on.
+"""Runtime of the port: typed EP-SpMV requests, LM serving steps, the train
+step, and the fault-tolerance pieces replicated serving and training stand on.
 
-``fault`` is imported eagerly (standard library only); the request and
-serving names load their modules on first use (PEP 562), so that
+``fault`` is imported eagerly (standard library only); the request, serving
+and training names load their modules on first use (PEP 562), so that
 ``core/replica.py``'s ``from ..runtime.fault import ...`` does not pull in
 torch and the kernels: a replica worker process imports ``repro_torch.core``
 and must create no CUDA context.
 """
-from .fault import CircuitBreaker, HeartbeatRegistry, OverloadSchedule, StragglerMonitor
+from .fault import (
+    CircuitBreaker,
+    FaultTolerantLoop,
+    HeartbeatRegistry,
+    OverloadSchedule,
+    StragglerMonitor,
+)
 
 _LAZY = {
     "BucketKey": "request",
@@ -20,10 +26,14 @@ _LAZY = {
     "resolve_plan": "request",
     "make_decode_step": "serve",
     "make_prefill_step": "serve",
+    "TrainState": "train",
+    "init_train_state": "train",
+    "make_train_step": "train",
+    "split_microbatches": "train",
 }
 
-__all__ = sorted([*_LAZY, "CircuitBreaker", "HeartbeatRegistry", "OverloadSchedule",
-                  "StragglerMonitor"])
+__all__ = sorted([*_LAZY, "CircuitBreaker", "FaultTolerantLoop", "HeartbeatRegistry",
+                  "OverloadSchedule", "StragglerMonitor"])
 
 
 def __getattr__(name):

@@ -1,25 +1,35 @@
-# Copied from src/repro/runtime/fault.py (four of its classes, verbatim); keep them in step.
-"""Fault-tolerance pieces of the port that serving needs (standard library only).
+# Copied from src/repro/runtime/fault.py (its five classes, verbatim but one line); keep them in step.
+"""Fault tolerance of the port (standard library only at import).
 
-``CircuitBreaker``, ``OverloadSchedule``, ``HeartbeatRegistry`` and
-``StragglerMonitor`` are verbatim copies of the classes of the same name in
-``src/repro/runtime/fault.py``: ``core/replica.py`` builds replica health,
-failover breakers and flood schedules on them.  That module's
-``FaultTolerantLoop`` is not copied: it drives training steps through
-``jax.tree.map`` and ``repro.ckpt.CheckpointManager``, and comes to the port
-with training and checkpoints.
+``CircuitBreaker``, ``OverloadSchedule``, ``HeartbeatRegistry``,
+``StragglerMonitor`` and ``FaultTolerantLoop`` are copies of the classes of
+the same name in ``src/repro/runtime/fault.py``: ``core/replica.py`` builds
+replica health, failover breakers and flood schedules on the first four;
+``FaultTolerantLoop`` drives training steps, checkpoints every
+``ckpt_every`` steps (async) and, when a step raises, restores the latest
+complete checkpoint and goes on from there, up to ``max_restarts`` times.
+The one line that differs is ``FaultTolerantLoop``'s structure template,
+which the reference builds with ``jax.tree.map``: here it is the state
+itself (restore reads only its structure).  ``CheckpointManager`` is named
+for type checkers only, so that importing this module (as a replica worker
+does) loads no torch.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Any, Callable, Optional
+
+if TYPE_CHECKING:
+    from ..ckpt import CheckpointManager
 
 __all__ = [
     "CircuitBreaker",
     "HeartbeatRegistry",
     "OverloadSchedule",
     "StragglerMonitor",
+    "FaultTolerantLoop",
 ]
 
 
@@ -218,3 +228,48 @@ class StragglerMonitor:
         else:
             self.ewma = dt if self.ewma is None else (1 - self.alpha) * self.ewma + self.alpha * dt
         return is_straggler
+
+
+@dataclasses.dataclass
+class FaultTolerantLoop:
+    """Checkpoint/restart driver around a (state, batch) -> (state, metrics)
+    step function and a stateless batch source ``batch_fn(step)``."""
+
+    step_fn: Callable[[Any, dict], tuple[Any, dict]]
+    batch_fn: Callable[[int], dict]
+    ckpt: CheckpointManager
+    ckpt_every: int = 10
+    max_restarts: int = 3
+    straggler: Optional[StragglerMonitor] = None
+
+    def run(self, state: Any, start_step: int, num_steps: int) -> tuple[Any, list[dict]]:
+        history: list[dict] = []
+        step = start_step
+        restarts = 0
+        abstract = state  # structure template
+        while step < start_step + num_steps:
+            try:
+                t0 = time.perf_counter()
+                batch = self.batch_fn(step)
+                state, metrics = self.step_fn(state, batch)
+                dt = time.perf_counter() - t0
+                if self.straggler is not None:
+                    self.straggler.record(step, dt)
+                history.append({"step": step, **{k: float(v) for k, v in metrics.items()}})
+                step += 1
+                if step % self.ckpt_every == 0:
+                    self.ckpt.save(step, state)
+            except (FileNotFoundError, KeyboardInterrupt):
+                raise
+            except Exception:
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                latest = self.ckpt.latest()
+                if latest is None:
+                    # No checkpoint yet: restart from the caller's state.
+                    step = start_step
+                    continue
+                step, state = self.ckpt.restore(abstract, latest)
+        self.ckpt.wait()
+        return state, history

@@ -2,8 +2,10 @@
 
 ``src/repro_torch/core`` and ``src/repro_torch/configs`` hold verbatim copies
 of ``src/repro/core`` and ``src/repro/configs`` modules,
-``src/repro_torch/runtime/fault.py`` verbatim copies of four classes of
-``src/repro/runtime/fault.py``, and ``src/repro_torch/launch/replica_worker.py``
+``src/repro_torch/runtime/fault.py`` copies of the five classes of
+``src/repro/runtime/fault.py`` (verbatim but for ``FaultTolerantLoop``'s
+structure template), ``src/repro_torch/data/pipeline.py`` a verbatim copy of
+``src/repro/data/pipeline.py``, and ``src/repro_torch/launch/replica_worker.py``
 a copy of ``src/repro/launch/replica_worker.py`` that names the port's
 package; these tests catch the two drifting apart.
 """
@@ -25,7 +27,11 @@ CONFIG_COPIES = ["__init__", "_register_all", "base", "granite_3_8b", "jamba_1_5
 COPIES = ["graph", "refine", "coarsen", "partition", "transform", "baselines", "metrics",
           "edge_partition", "reorder", "admission", "plan_cache", "plan_scheduler",
           "partition_service", "replica", "transport", "hierarchy", "moe_schedule", "overhead"]
-FAULT_CLASSES = ["CircuitBreaker", "OverloadSchedule", "HeartbeatRegistry", "StragglerMonitor"]
+FAULT_CLASSES = ["CircuitBreaker", "OverloadSchedule", "HeartbeatRegistry", "StragglerMonitor",
+                 "FaultTolerantLoop"]
+# The one line of FaultTolerantLoop the port adapts: its structure template.
+FAULT_SUBS = [("abstract = jax.tree.map(lambda x: x, state)  # structure template",
+               "abstract = state  # structure template")]
 # The only edits the port's replica worker makes to its source: the package
 # name in imports, the -m module and _src_root, and the comments that named
 # the JAX package's layout.
@@ -128,8 +134,23 @@ def test_fault_class_is_verbatim(name):
     header = port_path.read_text().split("\n", 1)[0]
     assert header.startswith("# Copied") and "src/repro/runtime/fault.py" in header
     port = _classes(port_path)
-    assert sorted(port) == sorted(FAULT_CLASSES)  # FaultTolerantLoop stays behind
-    assert port[name] == ref[name]
+    assert sorted(port) == sorted(FAULT_CLASSES)
+    want = ref[name]
+    for old, new in FAULT_SUBS:
+        want = want.replace(old, new)
+    assert port[name] == want
+
+
+def test_data_pipeline_is_verbatim():
+    for name in ("pipeline", "__init__"):
+        ref = (SRC / "repro" / "data" / f"{name}.py").read_text()
+        port = (SRC / "repro_torch" / "data" / f"{name}.py").read_text()
+        if name == "__init__":  # the same names, under the port's own docstring
+            assert port.split('"""', 2)[2] == ref.split('"""', 2)[2]
+            continue
+        header, body = port.split("\n", 1)
+        assert header.startswith("# Copied") and "src/repro/data/pipeline.py" in header
+        assert body == ref
 
 
 def test_replica_worker_differs_only_by_package_name():

@@ -1,4 +1,5 @@
-"""CUDA kernels against their plain twins, byte-identity, and the LM path on the card.
+"""CUDA kernels against their plain twins, byte-identity, and the LM serving and
+training paths on the card.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -482,3 +483,101 @@ def test_spmv_cg_on_card(cuda_device, capsys):
     assert capsys.readouterr().out.rstrip().endswith("spmv_cg OK")
     for name in ("spmv_software_cache", "ep_combine"):
         assert after[name] - before[name] == report["optimized_calls"], name
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(cfg, rng, b=4, s=32):
+    from repro_torch.launch.serve import prefill_inputs
+
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (b, s)))
+    inputs = prefill_inputs(cfg, prompt, rng, enc_len=s + 5)
+    inputs["labels"] = torch.from_numpy(rng.integers(2, cfg.vocab_size, (b, s)))
+    return inputs
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b", "seamless-m4t-medium"])
+def test_reduced_train_step_on_card_matches_cpu(cuda_device, no_tf32, arch):
+    """One step at two microbatches on the card against the CPU, the same
+    weights: the loss, each gradient leaf (relative to its largest
+    magnitude) and the updated weights within 1e-4 (a learning rate of 1e-5
+    keeps Adam's sign-normalised first update from amplifying rounding)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    cfg = get_config(arch, reduced=True)
+    opt = AdamWConfig(lr=1e-5)
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
+    s_cpu, s_card = init_train_state(cpu, opt, 0), init_train_state(card, opt, 0)
+    with torch.no_grad():
+        for a, b in zip(s_card.params.parameters(), s_cpu.params.parameters()):
+            a.copy_(b)
+    batch = _train_batch(cfg, np.random.default_rng(0))
+    before = launch_counts()
+    s_card, m_card = make_train_step(card, opt, num_microbatches=2)(
+        s_card, {k: v.to(cuda_device) for k, v in batch.items()})
+    assert launch_counts() == before  # the train path runs no kernel
+    s_cpu, m_cpu = make_train_step(cpu, opt, num_microbatches=2)(s_cpu, batch)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) < 1e-4
+    for (name, a), b in zip(s_card.params.named_parameters(), s_cpu.params.parameters()):
+        scale = max(float(b.grad.abs().max()), 1e-30)
+        assert float((a.grad.cpu() - b.grad).abs().max()) <= 1e-4 * scale, name
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-4, name
+
+
+def test_restart_is_bit_exact_on_card(cuda_device, tmp_path):
+    """The reference's restart test on the card, in a process of its own with
+    deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA
+    starts): the run that fails at step 12 ends on the uninterrupted run's
+    weights bit for bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import json, sys, torch\n"
+        "torch.use_deterministic_algorithms(True)\n"
+        "from repro_torch.launch.train import run_training\n"
+        "kw = dict(arch='granite-3-8b', steps=16, batch=4, seq=32, reduced=True,\n"
+        "          ckpt_every=5, num_microbatches=2, device='cuda')\n"
+        "a, _ = run_training(ckpt_dir=sys.argv[1] + '/a', **kw)\n"
+        "b, _ = run_training(ckpt_dir=sys.argv[1] + '/b', fail_at=12, **kw)\n"
+        "same = all(torch.equal(x, y) for x, y in zip(a.params.parameters(),\n"
+        "                                             b.params.parameters()))\n"
+        "print(json.dumps({'same': same, 'step': int(b.step)}))\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONPATH": src}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"same": True, "step": 16}
+
+
+def test_kernel_wrappers_refuse_gradients_on_card(cuda_device):
+    """The kernels write through ctypes into fresh outputs: with an input that
+    requires grad the wrappers raise instead of returning a result cut from
+    autograd's graph, and launch nothing."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 64, 64), generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    x = torch.randn((2, 64, 64), generator=gen, device=cuda_device, dtype=torch.bfloat16)
+    w = [torch.randn(shape, generator=gen, device=cuda_device, dtype=torch.bfloat16)
+         for shape in ((2, 64, 64), (2, 64, 64), (2, 64, 64))]
+    before = launch_counts()
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash_attention(q, k.requires_grad_(), v)
+    with pytest.raises(RuntimeError, match="forward only"):
+        moe_mlp(x.requires_grad_(), *w)
+    assert launch_counts() == before
+    with torch.no_grad():
+        flash_attention(q, k, v)
+        moe_mlp(x, *w)
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["moe_mlp"] == before["moe_mlp"] + 1
