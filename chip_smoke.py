@@ -126,6 +126,22 @@ the CPU, each within E2E_TOL; ``train_restart``: the reference's restart
 test on the card under deterministic algorithms, in a process of its own
 beside ``train_checks`` and ``examples``, bit-exact.
 
+The distribution layer: ``sharded`` (in a process of its own, a one-rank
+NCCL group, the 1x1 mesh over the card, deterministic algorithms): the
+``lm_serving`` cut served unsharded twice (the control) and then with its
+weights placed by the serve rules and the serve profile installed, so the
+kernels are reached through ``local_map`` on local shards: the same 32
+tokens, the prefill logits within E2E_TOL, the same launches; and one train
+step at the ``training`` cut in float32 compute, unsharded and under the
+train rules: loss and gradients within E2E_TOL, no launch.  ``dryrun``:
+``python -m repro_torch.launch.dryrun`` for six production cells (qwen3-moe
+train_4k and decode_32k on 16x16 and 2x16x16, jamba decode_32k, mamba2
+long_500k), each in a process of its own started before ``train_checks``
+and running beside them on the host's cores: every cell ``ok``, one line
+each with the modeled per-device GB, roofline terms and ``mfu``; and the
+dry-run's predictions on a 1x1 mesh for the two ``sharded`` cuts beside the
+card's own peak memory and wall time there.
+
 The ``examples`` phase runs the port's four examples through their
 ``main(["--device", "cuda"])``: the quickstart (EP-SpMV within 1e-4 of the
 COO oracle, through the software-cache kernel and the combine), CG behind
@@ -1729,6 +1745,366 @@ def phase_examples():
     _emit(out)
 
 
+# ---------------------------------------------------------------------------
+# The distribution layer: the sharded path on a 1x1 mesh, and the dry-run
+# ---------------------------------------------------------------------------
+
+# The dryrun phase's production cells: (arch, shape, multi_pod).
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", False), ("qwen3-moe-30b-a3b", "train_4k", True),
+                ("qwen3-moe-30b-a3b", "decode_32k", False),
+                ("qwen3-moe-30b-a3b", "decode_32k", True),
+                ("jamba-1.5-large-398b", "decode_32k", False), ("mamba2-2.7b", "long_500k", False))
+DRYRUN_TIMEOUT_S = 600
+SERVE_PROFILE = {"batch": ("data",), "model": ("model",)}
+# The sharded train step: training's cut in float32 compute.  Two bf16 runs
+# whose sums differ in order differ by whole bf16 ulps (4e-3 of a value) in
+# their gradients, so the comparison runs at train_checks' precision.
+SHARDED_TRAIN = {"n_layers": TRAIN["n_layers"], "compute_dtype": "float32"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_serve(mesh):
+    """(1) of :func:`phase_sharded`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.spmd import full
+    from repro_torch.runtime.axes import ActivationSharding, set_activation_sharding
+    from repro_torch.runtime.serve import make_decode_step
+    from repro_torch.runtime.sharding import distribute_params, make_sharding_rules, param_specs
+
+    b, s, gen = LM_TRAFFIC
+    cfg = dataclasses.replace(get_config(LM_ARCH), **LM_PATHS["lm_serving"][1])
+    model = Model(cfg, DEVICE)
+    params = model.compute_params(model.init(0))  # the bf16 copies; the masters are freed
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (b, s)))
+    prompt = prompt.to(DEVICE)
+    set_activation_sharding(ActivationSharding(mesh, SERVE_PROFILE))
+    decode = make_decode_step(model)
+
+    def serve(p):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = model.prefill(p, {"tokens": prompt}, s + gen)
+            logits = full(logits)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            toks = [tok]
+            for i in range(gen - 1):
+                nxt, cache = decode(p, cache, tok[:, None], s + i)
+                tok = full(nxt)[:, 0]
+                toks.append(tok)
+        torch.cuda.synchronize()
+        return logits, torch.stack(toks, 1), launch_counts(), time.perf_counter() - t0
+
+    logits0, tokens0, launches0, plain_s = serve(params)
+    control = serve(params)[1]  # the unsharded path again: is it deterministic here?
+    rules = make_sharding_rules(mesh, "serve")
+    sharded = distribute_params(params, param_specs(params, rules), mesh)
+    logits1, tokens1, launches1, sharded_s = serve(sharded)
+    del params  # the sharded weights are a copy: time and weigh them alone
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "prompt": s, "tokens": gen,
+           "tokens_equal": bool(torch.equal(tokens0, tokens1)),
+           "control_tokens_equal": bool(torch.equal(tokens0, control)),
+           "first_differing_token": int((tokens0 != tokens1).any(0).int().argmax())
+           if not torch.equal(tokens0, tokens1) else None,
+           "logits_max_abs_err": float((logits1 - logits0).abs().max()),
+           "logits_abs_max": float(logits0.abs().max()),
+           "launches_plain": launches0, "launches": launches1,
+           "expected": _expected_launches(cfg, gen),
+           "placements_wq": str(sharded.blocks[0].attn.wq.placements),
+           "request_s": {"plain": plain_s, "sharded": sharded_s}}
+    del logits0, logits1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.prefill(sharded, {"tokens": prompt}, s + gen)
+    torch.cuda.synchronize()
+    out["warm_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["warm_prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    set_activation_sharding(None)
+    return out
+
+
+def _sharded_train(mesh):
+    """(2) of :func:`phase_sharded`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.spmd import full
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.axes import ActivationSharding, set_activation_sharding
+    from repro_torch.runtime.sharding import distribute_params, make_sharding_rules, param_specs
+    from repro_torch.runtime.train import TrainState, init_train_state, make_train_step
+
+    t = TRAIN
+    cfg = dataclasses.replace(get_config(LM_ARCH), **SHARDED_TRAIN)
+    model = Model(cfg, DEVICE)
+    opt = AdamWConfig(lr=CHECK_LR)
+    pipe = SyntheticPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                                            global_batch=t["batch"]))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in pipe.batch(0).items()}
+    set_activation_sharding(ActivationSharding(mesh, SERVE_PROFILE))
+    step = make_train_step(model, opt, num_microbatches=t["microbatches"])
+
+    reset_launch_counts()
+    state, m0 = step(init_train_state(model, opt, 0), batch)
+    torch.cuda.synchronize()
+    launches0 = launch_counts()
+    grads0 = [p.grad.to("cpu") for p in state.params.parameters()]
+    del state
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    masters = model.init(0).requires_grad_()
+    params = distribute_params(masters, param_specs(masters, make_sharding_rules(mesh, "train")),
+                               mesh)
+    del masters
+    state = TrainState(params=params, opt_state=adamw_init(opt, params),
+                       step=torch.zeros((), dtype=torch.int32, device=DEVICE))
+    reset_launch_counts()
+    state, m1 = step(state, batch)
+    torch.cuda.synchronize()
+    launches1 = launch_counts()
+    grad_err = _max_rel_leaf_err([full(p.grad) for p in state.params.parameters()], grads0)
+    t0 = time.perf_counter()
+    state, m2 = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": t["batch"], "seq": t["seq"],
+           "microbatches": t["microbatches"], "lr": CHECK_LR, "compute_dtype": cfg.compute_dtype,
+           "loss": float(m0["loss"]), "loss_err": abs(float(m1["loss"]) - float(m0["loss"])),
+           "grad_rel_err": grad_err, "leaves": len(grads0),
+           "launches_plain": launches0, "launches": launches1,
+           "placements_w_gate": str(state.params.blocks[0].ffn.moe.w_gate.placements),
+           "warm_step_ms": (time.perf_counter() - t0) * 1e3,
+           "step_peak_bytes": torch.cuda.max_memory_allocated(),
+           "loss_second_step": float(m2["loss"])}
+    set_activation_sharding(None)
+    del state, params, grads0
+    return out
+
+
+def _sharded_child() -> None:
+    """``phase_sharded``'s own process (``python3 chip_smoke.py
+    --sharded-check``): a one-rank NCCL group, the 1x1 mesh over the card;
+    prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        out = {"mesh": str(mesh), "serve": _sharded_serve(mesh)}
+        torch.cuda.empty_cache()
+        out["train"] = _sharded_train(mesh)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out))
+
+
+def _child(flag, timeout):
+    """Run this script with ``flag`` in a process of its own (the repository's
+    ``src`` on its path); its last stdout line, parsed.  The process is
+    killed if it outlives ``timeout``."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = child.communicate(timeout=timeout)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"{flag} failed: {stderr[-4000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def phase_sharded(dryrun_alive: int):
+    """The distribution layer on the card, in a process of its own (process
+    group state is global): a one-rank NCCL group and ``make_host_mesh()``,
+    deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set), TF32 off.
+
+    (1) qwen3-moe-30b-a3b at ``lm_serving``'s cut (8 of 48 layers, published
+    widths, bf16 weights, B = 4 x 2,048 prompts, 32 greedy tokens): served
+    unsharded twice (the second run is the control: the path's own
+    repeatability), then with the weights placed by the serve rules
+    (``distribute_params``) and the serve profile installed, so that every
+    activation is a DTensor and the kernels are reached through
+    ``local_map`` on local shards.  The same greedy tokens, prefill logits
+    within E2E_TOL, and the flash and expert-FFN launches equal to the
+    unsharded run's (and to :func:`_expected_launches`).  A warm sharded
+    prefill is timed and its peak memory read.  (2) One train step at
+    ``training``'s cut (layers 0-3, 8 x 2,048, 2 microbatches, AdamW at
+    CHECK_LR) in float32 compute (``SHARDED_TRAIN``) unsharded, then under
+    the train rules from the same seed: the loss and every gradient leaf
+    (relative to its largest magnitude) within E2E_TOL, no kernel launched;
+    a second sharded step is timed and the peak memory of both read.
+    ``dryrun_alive``, recorded, is the number of dry-run processes still
+    running while it is timed (0: the dry-run is waited for first).
+    Returns the child's record.
+    """
+    t0 = time.perf_counter()
+    res = _child("--sharded-check", 900)
+    _emit({"phase": "sharded", "tol": E2E_TOL, **res, "dryrun_alive": dryrun_alive,
+           "seconds": time.perf_counter() - t0})
+    serve, train = res["serve"], res["train"]
+    lm = {k: serve["launches"][k] for k in LM_KERNELS}
+    if not serve["tokens_equal"] or serve["logits_max_abs_err"] > E2E_TOL:
+        raise AssertionError(f"sharded serving differs from unsharded: {serve}")
+    if serve["launches"] != serve["launches_plain"] or lm != serve["expected"]:
+        raise AssertionError(f"sharded serving launches: {serve}")
+    if train["loss_err"] > E2E_TOL or train["grad_rel_err"] > E2E_TOL:
+        raise AssertionError(f"sharded train step differs from unsharded: {train}")
+    if any(train["launches"].values()) or any(train["launches_plain"].values()):
+        raise AssertionError(f"the train step launched kernels: {train}")
+    return res
+
+
+def _dryrun_1x1_child() -> None:
+    """The dry-run's prediction for the two cuts of ``phase_sharded`` on a
+    1x1 mesh (``python3 chip_smoke.py --dryrun-1x1``): meta tensors in a
+    fake group of one rank; prints one JSON line."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    dryrun.init_fake_world(1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    b, s, gen = LM_TRAFFIC
+    base = get_config(LM_ARCH)
+    serve = dryrun.measure(dataclasses.replace(base, **LM_PATHS["lm_serving"][1]),
+                           ShapeConfig("lm_serving", "prefill", s, b), mesh)
+    t = TRAIN
+    train = dryrun.measure(dataclasses.replace(base, **SHARDED_TRAIN),
+                           ShapeConfig("training", "train", t["seq"], t["batch"]), mesh,
+                           num_microbatches=t["microbatches"])
+    print(json.dumps({"serve": serve, "train": train}))
+
+
+class DryRun:
+    """The ``dryrun`` phase's processes, started early: ``python -m
+    repro_torch.launch.dryrun`` for each of DRYRUN_CELLS (records under
+    ``experiments/dryrun_torch/``, the dry-run's own default) and
+    ``--dryrun-1x1``, their output in files beside the records.  They use
+    the host's cores only, so they run beside the checks that are not timed
+    and are waited for (:meth:`wait`) before the timed sharded phase; every
+    one still running is killed by :meth:`stop`."""
+
+    def __init__(self):
+        import os
+
+        root = Path(__file__).resolve().parent
+        env = {**os.environ, "PYTHONPATH": str(root / "src")}
+        self.dir = root / "experiments" / "dryrun_torch"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.t0 = time.perf_counter()
+        commands = {f"{arch}__{shape}__{'2x16x16' if mp else '16x16'}": [
+            "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+            *(["--multi-pod"] if mp else []), "--out", str(self.dir)]
+            for arch, shape, mp in DRYRUN_CELLS}
+        commands["1x1"] = [str(Path(__file__).resolve()), "--dryrun-1x1"]
+        self.procs = {}
+        for name, args in commands.items():
+            with open(self.dir / f"{name}.out", "w") as out, open(self.dir / f"{name}.err",
+                                                                   "w") as err:
+                self.procs[name] = subprocess.Popen([sys.executable, *args], env=env,
+                                                    stdout=out, stderr=err)
+
+    def result(self, name):
+        """``(returncode, stdout, stderr)`` of process ``name`` once it ends."""
+        rc = self.procs[name].wait(timeout=DRYRUN_TIMEOUT_S)
+        return (rc, (self.dir / f"{name}.out").read_text(),
+                (self.dir / f"{name}.err").read_text())
+
+    def wait(self):
+        """Wait until every process has ended."""
+        for p in self.procs.values():
+            p.wait(timeout=DRYRUN_TIMEOUT_S)
+
+    def alive(self) -> int:
+        return sum(p.poll() is None for p in self.procs.values())
+
+    def stop(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_dryrun(dry: DryRun, sharded):
+    """The dry-run's records, read when its processes end: one line per
+    cell with its status, per-device GB, the three roofline terms, the
+    dominant one and ``mfu``, all modeled from the H100's data-sheet
+    constants.  Then the same builders' predictions on a 1x1 mesh for
+    ``phase_sharded``'s two cuts: the per-device bytes and roofline step
+    time beside the card's own peak memory and wall time from that phase.
+    Every cell must be ``ok``."""
+    rc, out, err = dry.result("1x1")
+    if rc != 0:
+        raise AssertionError(f"--dryrun-1x1 failed: {err[-4000:]}")
+    predicted = json.loads(out.strip().splitlines()[-1])
+    for name in dry.procs:
+        if name == "1x1":
+            continue
+        rc, out, err = dry.result(name)
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        rec = json.loads(lines[-1]) if lines else {"status": "no output"}
+        if rc != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"dry-run {name}: {rec} {err[-2000:]}")
+        _emit({"phase": "dryrun_cell", "modeled": "H100 data-sheet constants", **rec})
+    card = {"serve": {"peak_bytes": sharded["serve"]["warm_prefill_peak_bytes"],
+                      "wall_ms": sharded["serve"]["warm_prefill_ms"]},
+            "train": {"peak_bytes": sharded["train"]["step_peak_bytes"],
+                      "wall_ms": sharded["train"]["warm_step_ms"]}}
+    compare = {}
+    for cut in ("serve", "train"):
+        p, c = predicted[cut], card[cut]
+        compare[cut] = {"predicted_bytes": p["memory"]["per_device_total_bytes"],
+                        "predicted_argument_bytes": p["memory"]["argument_size_in_bytes"],
+                        "predicted_step_ms": p["roofline"]["step_time_s"] * 1e3,
+                        "predicted_terms_ms": {k: p["roofline"][f"{k}_s"] * 1e3 for k in
+                                               ("compute", "memory", "collective")},
+                        "predicted_dominant": p["roofline"]["dominant"],
+                        "predicted_flops": p["cost_model"]["flops_per_chip"],
+                        "predicted_eager_op_bytes": p["cost_model"]["eager_op_bytes_per_chip"],
+                        "card_peak_bytes": c["peak_bytes"], "card_wall_ms": c["wall_ms"],
+                        "bytes_ratio": p["memory"]["per_device_total_bytes"] / c["peak_bytes"],
+                        "step_ratio": p["roofline"]["step_time_s"] * 1e3 / c["wall_ms"]}
+    _emit({"phase": "dryrun", "cells": len(DRYRUN_CELLS), "hw": "H100 SXM data-sheet constants",
+           "predicted_vs_card": compare, "nvidia_smi": _nvidia_smi(),
+           "seconds_since_start": time.perf_counter() - dry.t0})
+
+
 def _set_launches(entries, by_path) -> None:
     """Each kernel entry's launches on every path, and their total; each of
     its other shapes (a nested entry with a ``path``) the launches of the
@@ -1750,6 +2126,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--restart-check"]:  # the restart check's own process
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         _restart_child(sys.argv[2])
+        return 0
+    children = {"--sharded-check": _sharded_child, "--dryrun-1x1": _dryrun_1x1_child}
+    if sys.argv[1:2] and sys.argv[1] in children:  # a phase's own process
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        children[sys.argv[1]]()
         return 0
 
     if not torch.cuda.is_available():
@@ -1824,11 +2205,20 @@ def main() -> int:
             phase_lm_checks()
             torch.cuda.empty_cache()
     by_path["training"] = phase_training()
-    with restart_check_beside():
-        phase_train_checks()
+    dry = DryRun()  # on the host's cores, beside the checks that are not timed
+    try:
+        with restart_check_beside():
+            phase_train_checks()
+            torch.cuda.empty_cache()
+            phase_examples()
         torch.cuda.empty_cache()
-        _set_launches(entries, by_path)
-        phase_examples()
+        dry.wait()  # no dry-run process competes for the host while sharded is timed
+        sharded = phase_sharded(dry.alive())
+        by_path["sharded"] = sharded["serve"]["launches"]
+        phase_dryrun(dry, sharded)
+    finally:
+        dry.stop()
+    _set_launches(entries, by_path)
     _emit({"kernels": entries})
     _emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "find_nvcc", "launch", "library",
-           "ptxas_report", "sass"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "count_meta", "find_nvcc", "launch",
+           "library", "meta_listeners", "ptxas_report", "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -112,6 +112,18 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+#: Callables ``fn(name, flops, nbytes)`` told of each kernel call on meta
+#: tensors (the dry-run's counters): a kernel counted by its own formula.
+meta_listeners: list = []
+
+
+def count_meta(name: str, flops: float, nbytes: float) -> None:
+    """Report a kernel call on meta tensors, which launches nothing, to the
+    :data:`meta_listeners`: its products and the bytes it must move."""
+    for fn in meta_listeners:
+        fn(name, flops, nbytes)
 
 
 def check_forward_only(name: str, *tensors: torch.Tensor) -> None:

@@ -14,7 +14,10 @@ The kernel lives in ``csrc/flash_attention.cu`` (bf16 on the tensor cores
 through TMA and ``wgmma``, float32 on the CUDA cores) and is launched through
 ctypes on PyTorch's current stream.  Given CUDA tensors the wrapper launches
 it or raises; given CPU tensors it runs the twin
-:func:`~repro_torch.kernels.ref.flash_attention_ref`.  The wrapper counts its
+:func:`~repro_torch.kernels.ref.flash_attention_ref`; given meta tensors
+(the dry-run) it returns an empty output and reports the causal pairs'
+products and the bytes of q, k, v and the output to
+:func:`~repro_torch.kernels._build.count_meta`.  The wrapper counts its
 launches in its ``launches`` attribute.  It is forward only, on either
 device: with grad mode on, an input that requires grad raises.
 """
@@ -54,6 +57,12 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     hkv = k.shape[1]
     if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or h % hkv:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if q.is_meta:  # the dry-run: nothing runs, the kernel is counted by its formula
+        t = k.shape[2]
+        pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+        _build.count_meta("flash_attention", 4 * b * h * dh * pairs,
+                          q.element_size() * (2 * q.numel() + k.numel() + v.numel()))
+        return torch.empty_like(q)
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal)
     if q.dtype not in _SUFFIX:

@@ -12,7 +12,10 @@ SwiGLU in its epilogue, then down; bf16 on the tensor cores through TMA and
 ``wgmma``, float32 on the CUDA cores) and are launched through ctypes on
 PyTorch's current stream.  Given CUDA tensors the wrapper launches them or
 raises; given CPU tensors it runs the twin
-:func:`~repro_torch.kernels.ref.moe_mlp_ref`.  Each call adds one to the
+:func:`~repro_torch.kernels.ref.moe_mlp_ref`; given meta tensors (the
+dry-run) it returns an empty output and reports every slab row's three
+products and the bytes of the slab, the output and every expert's weights
+to :func:`~repro_torch.kernels._build.count_meta`.  Each call adds one to the
 wrapper's ``launches`` attribute (one call, two kernels).  It is forward
 only, on either device: with grad mode on, an input that requires grad
 raises.
@@ -54,6 +57,10 @@ def moe_mlp(x_packed, w_gate, w_up, w_down) -> torch.Tensor:
             or w_down.shape != (e, f, d)):
         raise ValueError(f"weights {tuple(w_gate.shape)}, {tuple(w_up.shape)}, "
                          f"{tuple(w_down.shape)} do not match x_packed {tuple(x_packed.shape)}")
+    if x_packed.is_meta:  # the dry-run: counted by its formula, every slab row and expert
+        _build.count_meta("moe_mlp", 6 * e * c * d * f,
+                          x_packed.element_size() * (2 * e * c * d + 3 * e * d * f))
+        return torch.empty_like(x_packed)
     if not x_packed.is_cuda:
         return moe_mlp_ref(x_packed, w_gate, w_up, w_down)
     dtype, device = x_packed.dtype, x_packed.device

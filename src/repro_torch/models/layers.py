@@ -18,16 +18,21 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .spmd import col, row
+
 __all__ = [
     "apply_mrope",
     "apply_rope",
     "chunked_attention",
     "decode_attention",
     "dot_f32",
+    "generator",
     "init_embedding",
     "init_linear",
     "init_rms_norm",
+    "linear",
     "make_rope_cache",
+    "normal",
     "rms_norm",
     "swiglu",
 ]
@@ -38,8 +43,31 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
+class _MetaGenerator:
+    """Stands in for a generator on the meta device, which has none: the
+    initialisers then draw nothing and return storage-less tensors."""
+
+    device = torch.device("meta")
+
+
+def generator(seed: int, device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (a stand-in
+    that draws nothing on the meta device)."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return _MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def normal(gen, shape) -> torch.Tensor:
+    """Float32 standard-normal draws of ``shape`` from ``gen`` on its device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype) -> torch.Tensor:
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device, dtype=torch.float32)
+    w = normal(gen, (d_in, d_out))
     return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
 
 
@@ -48,8 +76,7 @@ def init_rms_norm(d: int, dtype, device) -> torch.Tensor:
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, device=gen.device, dtype=torch.float32)
-    return w.mul_(0.02).to(dtype)
+    return normal(gen, (vocab, d)).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -57,12 +84,23 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; with a 2-D ``w``, one 2-D product over ``x``'s flattened
+    leading dims.  ``matmul`` does the same when ``x``'s strides chain, and
+    else a batched product, which rounds differently; a DTensor's size-1
+    dims can carry strides that do not chain where the plain tensor's do,
+    so the sharded path would round otherwise than the unsharded one."""
+    if w.dim() != 2 or x.dim() <= 2:
+        return x @ w
+    return (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32 (the reference's
     ``preferred_element_type=float32`` product)."""
     if x.dtype == w.dtype == torch.float32:
-        return x @ w
-    return x.float() @ w.float()
+        return linear(x, w)
+    return linear(x.float(), w.float())
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -127,8 +165,8 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     product in the activation type.  Leading axes batch, so the training
     path runs every expert at once over ``(E, C, D)`` slabs and ``(E, D, F)``
     weights."""
-    h = (F.silu(dot_f32(x, w_gate)) * dot_f32(x, w_up)).to(x.dtype)
-    return h @ w_down
+    h = (F.silu(dot_f32(x, col(w_gate))) * dot_f32(x, col(w_up))).to(x.dtype)
+    return linear(h, row(w_down))
 
 
 # ---------------------------------------------------------------------------

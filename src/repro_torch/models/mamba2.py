@@ -22,7 +22,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import init_linear, rms_norm
+from .layers import init_linear, linear, normal, rms_norm
+from ..runtime.axes import get_activation_sharding
+from .spmd import (col, is_dtensor, local_index, placements, replicated_like, row,
+                   shard_map)
 
 __all__ = [
     "ssd_chunked",
@@ -44,7 +47,7 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     cs = torch.cumsum(a, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]  # sum_{j < s <= i}
     above = torch.ones((l, l), dtype=torch.bool, device=a.device).triu_(1)
-    return diff.masked_fill_(above, float("-inf"))
+    return diff.masked_fill_(replicated_like(a, above), float("-inf"))
 
 
 def ssd_chunked(
@@ -102,7 +105,7 @@ def ssd_chunked(
     # 3. Inter-chunk recurrence, emitting the state *entering* each chunk.
     chunk_decay = torch.exp(da_cs[..., -1])  # (B,nc,G,Hg)
     if initial_state is None:
-        state = torch.zeros((b, g, hg, p, n), dtype=torch.float32, device=x.device)
+        state = x.new_zeros((b, g, hg, p, n), dtype=torch.float32)
     else:
         state = initial_state.reshape(b, g, hg, p, n).float()
     entering = []
@@ -152,8 +155,8 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     width = w.shape[0]
     padded = F.pad(x, (0, 0, width - 1, 0))
     s = x.shape[1]
-    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for i in range(width):  # W=4: four shifted multiply-adds
+    y = padded[:, :s, :].float() * w[0].float()
+    for i in range(1, width):  # W=4: four shifted multiply-adds
         y = y + padded[:, i : i + s, :].float() * w[i].float()
     return (y + b.float()).to(x.dtype)
 
@@ -187,8 +190,7 @@ def init_mamba_params(gen: torch.Generator, d_model: int, ssm, dtype) -> dict:
     d_in_proj = 2 * d_inner + 2 * ssm.n_groups * ssm.d_state + h
     dev = gen.device
     in_proj = init_linear(gen, d_model, d_in_proj, dtype)
-    conv_w = torch.randn((ssm.d_conv, conv_dim), generator=gen, device=dev,
-                         dtype=torch.float32).mul_(0.2).to(dtype)
+    conv_w = normal(gen, (ssm.d_conv, conv_dim)).mul_(0.2).to(dtype)
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
@@ -208,6 +210,59 @@ def _split_proj(z_xbc_dt, d_inner, gn2, h):
     return z, xbc, dt
 
 
+def _conv_by_channels(x, w, b):
+    """:func:`causal_conv1d`; on DTensors each rank convolves its batch
+    shard's channels (the conv mixes no channels; DTensor's pad has no
+    strategy on PyTorch 2.11)."""
+    if not is_dtensor(x):
+        return causal_conv1d(x, w, b)
+    x_pl = placements(x.shape, ("batch", None, "model"))
+    return shard_map(causal_conv1d, (x, w, b), (x_pl, placements(w.shape, (None, "model")),
+                                                placements(b.shape, ("model",))), x_pl)
+
+
+def _by_heads(fn, xs, dt, A, bm, cm, state, head_dim: int):
+    """``fn(xs, dt, A, bm, cm, state)``, an SSD over heads (``xs`` with its
+    heads at ``head_dim``, ``dt`` likewise, ``A (H,)``, ``bm``/``cm`` with
+    their groups at ``head_dim``, ``state (B, H, P, N)`` or None) returning
+    ``(y like xs, state)``.  On DTensors each rank runs its batch shard and,
+    where the heads divide the 'model' axis into whole groups or parts of
+    one, its heads with their groups' B and C: the SSD mixes no heads."""
+    if not is_dtensor(xs):
+        return fn(xs, dt, A, bm, cm, state)
+    h, g = xs.shape[head_dim], bm.shape[head_dim]
+    hg = h // g
+    prof = get_activation_sharding()
+    ways = prof.axis_size(prof.logical.get("model", ()))
+    h_l = h // ways
+    split = ways > 1 and h % ways == 0 and (h_l % hg == 0 or hg % h_l == 0)
+    heads = "model" if split else None
+
+    def local(xs, dt, A, bm, cm, state):
+        h0 = local_index("model", split) * xs.shape[head_dim]
+        g0, ng = h0 // hg, max(1, xs.shape[head_dim] // hg)
+        bm, cm = (t.narrow(head_dim, g0, ng) for t in (bm, cm))
+        return fn(xs, dt, A, bm, cm, state)
+
+    pl = lambda t, d: None if t is None else placements(t.shape, _at(d, t.dim(), heads))
+    group_pl = placements(bm.shape, _at(head_dim, bm.dim(), None))
+    y_pl, st_pl = pl(xs, head_dim), placements(
+        (xs.shape[0], h, xs.shape[-1], bm.shape[-1]), _at(1, 4, heads))
+    return shard_map(local, (xs, dt, A, bm, cm, state),
+                     (y_pl, pl(dt, head_dim), pl(A, 0), group_pl, group_pl, pl(state, 1)),
+                     (y_pl, st_pl))
+
+
+def _at(dim: int, ndim: int, heads) -> tuple:
+    """A logical spec: batch first, ``heads`` at ``dim`` (dim 0 of a 1-D
+    tensor is its heads), nothing else split."""
+    spec = [None] * ndim
+    if ndim > 1:
+        spec[0] = "batch"
+    spec[dim] = heads
+    return tuple(spec)
+
+
 def mamba_mixer(
     params, x: torch.Tensor, ssm, *, chunk: Optional[int] = None,
     initial_state: Optional[torch.Tensor] = None, return_state: bool = False,
@@ -222,22 +277,23 @@ def mamba_mixer(
     d_inner = ssm.expand * d
     h = d_inner // ssm.head_dim
     g, n = ssm.n_groups, ssm.d_state
-    proj = x @ params["in_proj"]  # float32 sums, rounded to x's type
+    proj = linear(x, col(params["in_proj"]))  # float32 sums, rounded to x's type
     z, xbc_raw, dt_raw = _split_proj(proj, d_inner, 2 * g * n, h)
-    xbc = causal_conv1d(xbc_raw, params["conv_w"], params["conv_b"])
+    xbc = _conv_by_channels(xbc_raw, params["conv_w"], params["conv_b"])
     xbc = F.silu(xbc.float()).to(x.dtype)
     xs = xbc[..., :d_inner].reshape(b, s, h, ssm.head_dim)
     bm = xbc[..., d_inner : d_inner + g * n].reshape(b, s, g, n)
     cm = xbc[..., d_inner + g * n :].reshape(b, s, g, n)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, final_state = ssd_chunked(
-        xs, dt, A, bm, cm, chunk=chunk or ssm.chunk, initial_state=initial_state
-    )
+    y, final_state = _by_heads(
+        lambda xs, dt, A, bm, cm, st: ssd_chunked(xs, dt, A, bm, cm, chunk=chunk or ssm.chunk,
+                                                  initial_state=st),
+        xs, dt, A, bm, cm, initial_state, head_dim=2)
     y = y + (params["D"].reshape(h, 1) * xs.float()).to(y.dtype)
     y = y.reshape(b, s, d_inner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"])
-    out = y @ params["out_proj"]
+    out = linear(y, row(params["out_proj"]))
     if return_state:
         width = params["conv_w"].shape[0]
         tail = xbc_raw[:, -(width - 1) :, :]
@@ -255,7 +311,7 @@ def mamba_decode_step(
     d_inner = ssm.expand * d
     h = d_inner // ssm.head_dim
     g, n = ssm.n_groups, ssm.d_state
-    proj = x_t @ params["in_proj"]
+    proj = linear(x_t, col(params["in_proj"]))
     z, xbc, dt_raw = _split_proj(proj, d_inner, 2 * g * n, h)
     xbc, conv_state = conv_decode_step(xbc, conv_state, params["conv_w"], params["conv_b"])
     xbc = F.silu(xbc.float()).to(x_t.dtype)
@@ -264,9 +320,9 @@ def mamba_decode_step(
     cm = xbc[..., d_inner + g * n :].reshape(b, g, n)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, ssm_state = ssd_decode_step(xs, dt, A, bm, cm, ssm_state)
+    y, ssm_state = _by_heads(ssd_decode_step, xs, dt, A, bm, cm, ssm_state, head_dim=1)
     y = y + (params["D"].reshape(h, 1) * xs.float()).to(y.dtype)
     y = y.reshape(b, d_inner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"])
-    out = y @ params["out_proj"]
+    out = linear(y, row(params["out_proj"]))
     return out, conv_state, ssm_state

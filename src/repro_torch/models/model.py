@@ -22,9 +22,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..runtime.axes import hint
 from . import transformer as tf
 from .layers import dot_f32
 from .params import Params
+from .spmd import col, is_dtensor, local_index, place, placements, shard_map, splits
 from .transformer import cast_params_for_compute, cast_params_for_train
 
 __all__ = ["Model", "chunked_ce_loss"]
@@ -33,10 +35,47 @@ __all__ = ["Model", "chunked_ce_loss"]
 def _ce_chunk(hc, w_head, yc):
     """Summed token cross-entropy of one chunk: its ``(B, c, V)`` float32 logits
     live only inside this call."""
-    logits = dot_f32(hc, w_head)
+    logits = hint(dot_f32(hc, w_head), "batch", None, "model")
+    if not is_dtensor(logits):
+        return torch.sum(_token_ce(logits, yc))
+    if splits(logits.shape, ("batch", None, "model"), 2):
+        return _ce_sharded(logits, yc)
+    y_pl = placements(yc.shape, ("batch", None))  # the vocabulary is whole: per rank's tokens
+    return torch.sum(shard_map(_token_ce, (logits, yc),
+                               (placements(logits.shape, ("batch", None, None)), y_pl), y_pl))
+
+
+def _token_ce(logits, yc):
+    """Each token's cross-entropy ``(B, c)``: logsumexp minus the gold logit."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
-    return torch.sum(lse - gold)
+    return lse - torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+
+
+def _ce_sharded(logits, yc):
+    """:func:`_ce_chunk`'s sum over DTensor logits whose vocabulary is
+    sharded over 'model': each rank takes the max, the sum of exponentials
+    and the gold logit over its vocabulary slice, and the three reduce over
+    'model' (a max, then two sums) to the logsumexp and the gold logit."""
+    l_pl = placements(logits.shape, ("batch", None, "model"))
+    y_pl = placements(yc.shape, ("batch", None))
+    part = ("model",)
+    m = shard_map(lambda x: x.detach().amax(dim=-1), (logits,), (l_pl,),
+                  placements(yc.shape, ("batch", None), part, "max"))
+    m = m.redistribute(m.device_mesh, y_pl)
+
+    def local(x, m, y):
+        v = x.shape[-1]
+        rel = y.long() - local_index("model", True) * v
+        ok = (rel >= 0) & (rel < v)
+        gold = torch.gather(x, -1, rel.clamp(0, v - 1)[..., None])[..., 0]
+        return torch.exp(x - m[..., None]).sum(dim=-1), torch.where(ok, gold, 0.0)
+
+    sum_exp, gold = shard_map(local, (logits, m, yc), (l_pl, y_pl, y_pl),
+                              (placements(yc.shape, ("batch", None), part),) * 2)
+    # Reduced before the log: a nonlinear op given a Partial input saves it
+    # for backward, and PyTorch 2.11 then divides by one rank's share.
+    sum_exp, gold = (t.redistribute(t.device_mesh, y_pl) for t in (sum_exp, gold))
+    return torch.sum(m + torch.log(sum_exp) - gold)
 
 
 def chunked_ce_loss(h, w_head, labels, chunk: int) -> torch.Tensor:
@@ -52,10 +91,14 @@ def chunked_ce_loss(h, w_head, labels, chunk: int) -> torch.Tensor:
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the loss chunk {chunk}")
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    if is_dtensor(h):
+        labels = place(labels, "batch", None)
+        w_head = col(w_head)
+    total = None
     for i in range(0, s, chunk):
-        total = total + checkpoint(_ce_chunk, h[:, i:i + chunk], w_head,
-                                   labels[:, i:i + chunk], use_reentrant=False)
+        part = checkpoint(_ce_chunk, h[:, i:i + chunk], w_head, labels[:, i:i + chunk],
+                          use_reentrant=False)
+        total = part if total is None else total + part
     return total / (b * s)
 
 
@@ -73,6 +116,11 @@ class Model:
     def init(self, seed: int = 0) -> Params:
         """Master weights (``cfg.param_dtype``) drawn on this model's device."""
         return tf.init_params(self.cfg, seed, self.device)
+
+    def abstract_params(self) -> Params:
+        """The master weights' tree on the meta device: shapes and dtypes,
+        no storage, nothing drawn (the dry-run's parameters)."""
+        return tf.init_params(self.cfg, 0, "meta")
 
     def compute_params(self, params: Params) -> Params:
         """Compute-type copies of ``params`` (leaves kept f32 are shared)."""
@@ -105,7 +153,7 @@ class Model:
         ``params`` are the master weights or their :meth:`compute_params`."""
         p = self.compute_params(params)
         h_last, cache = tf.forward_prefill(p, self.cfg, batch, max_len)
-        return dot_f32(h_last, tf.lm_head(p, self.cfg)), cache
+        return dot_f32(h_last, col(tf.lm_head(p, self.cfg))), cache
 
     def decode_step(self, params: Params, cache: dict, batch: dict, pos):
         """One-token step; returns (logits (B, V) f32, the cache updated in place)."""

@@ -1,14 +1,16 @@
 """Mixture-of-Experts layer with scatter-based dispatch (port of ``repro.models.moe``).
 
-The serving path's MoE FFN, for one device (the reference's
-``n_dispatch_shards = 1``):
+The MoE FFN:
 
   1. router logits in float32 -> softmax -> top-k (weights, ids), weights
      renormalised over the k (``norm_topk``);
   2. position of each routed pair within its expert, counted over the
      flattened ``(T * k)`` pairs, token-major and k-minor (the reference's
      one-hot running count, computed here by a stable sort of the pairs by
-     expert: the same integers without the ``(T * k, E)`` one-hot);
+     expert: the same integers without the ``(T * k, E)`` one-hot); with
+     ``n_dispatch_shards = ns`` the pairs split into ``ns`` runs and each
+     expert's capacity into ``ns`` slices, counted per run (the reference's
+     slab ``(E, ns, cap/ns, D)``);
   3. pairs past the expert's capacity are dropped, the kept ones copied into
      per-expert capacity slabs ``(E, C, D)`` (one pair per slot, so the copy
      is exact in any order; dropped pairs go to a spare row that is cut off);
@@ -24,19 +26,25 @@ The serving path's MoE FFN, for one device (the reference's
      weight in float32, plus the shared experts under their sigmoid gate.
 
 ``expert_perm`` (E,) maps a logical expert to the slab slot holding its
-weights, as in the reference.  The reference's shard_map dispatch paths have
-no counterpart here: there is no mesh.
+weights, as in the reference.  On DTensors (a mesh profile installed, see
+:mod:`~repro_torch.models.spmd`) steps 2-5 run on each rank's shards, the
+counterpart of the reference's ``_dispatch_shard_map``: the scatter and
+gather are shard-local, and when E divides the 'model' axis each rank
+builds and runs only its expert slice.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import moe_mlp
-from .layers import dot_f32, init_linear, swiglu
+from ..runtime.axes import get_activation_sharding
+from .layers import dot_f32, init_linear, linear, normal, swiglu
+from .spmd import col, grad_layout, is_dtensor, local_index, placements, row, shard_map, whole
 
 __all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "recorded_routing",
            "route", "router_load_balancing_loss"]
@@ -61,9 +69,7 @@ def recorded_routing():
 def init_moe_params(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
     """cfg is a configs.base.MoESettings."""
     def experts(d_in, d_out):
-        w = torch.randn((cfg.n_experts, d_in, d_out), generator=gen, device=gen.device,
-                        dtype=torch.float32)
-        return w.mul_(d_in ** -0.5).to(dtype)
+        return normal(gen, (cfg.n_experts, d_in, d_out)).mul_(d_in ** -0.5).to(dtype)
 
     p = {
         "router": init_linear(gen, d_model, cfg.n_experts, torch.float32),
@@ -82,22 +88,45 @@ def init_moe_params(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
     return p
 
 
+def _expert_counts(ids, n_experts: int) -> torch.Tensor:
+    """Pairs routed to each expert, float32 ``(E,)`` (whole numbers: exact in any order)."""
+    ids = ids.reshape(-1)
+    return torch.zeros(n_experts, device=ids.device).index_add_(
+        0, ids, torch.ones(ids.shape, device=ids.device))
+
+
 def router_load_balancing_loss(router_probs, expert_ids, n_experts: int) -> torch.Tensor:
     """Switch-Transformer aux loss: E * sum_e f_e * p_e (1.0 at uniform)."""
-    ids = expert_ids.reshape(-1)
-    counts = torch.zeros(n_experts, device=ids.device).index_add_(
-        0, ids, torch.ones(ids.shape, device=ids.device))  # whole numbers: exact in any order
+    if is_dtensor(expert_ids):  # each rank counts its tokens' pairs; the sum is the reduction
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        in_pl = placements(expert_ids.shape, ("batch", None))
+        out_pl = [Partial() if isinstance(p, Shard) else Replicate() for p in in_pl]
+        counts = shard_map(lambda ids: _expert_counts(ids, n_experts), (expert_ids,), (in_pl,),
+                           out_pl)
+        counts = counts.redistribute(counts.device_mesh, [Replicate()] * len(out_pl))
+    else:
+        counts = _expert_counts(expert_ids, n_experts)
     frac_tokens = counts / counts.sum().clamp(min=1.0)
     return n_experts * torch.sum(frac_tokens * router_probs.mean(dim=0))
 
 
 def route(x, router, top_k: int, norm_topk: bool = True):
-    """``(probs (T, E), weights (T, k), ids (T, k))`` of tokens ``x (T, D)``."""
-    probs = torch.softmax(dot_f32(x, router), dim=-1)
-    weights, ids = torch.topk(probs, top_k, dim=-1)
-    if norm_topk:
-        weights = weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    return probs, weights, ids
+    """``(probs (T, E), weights (T, k), ids (T, k))`` of tokens ``x (T, D)``.
+    On DTensors the softmax and top-k run on each rank's tokens."""
+    def local(logits):
+        probs = torch.softmax(logits, dim=-1)
+        weights, ids = torch.topk(probs, top_k, dim=-1)
+        if norm_topk:
+            weights = weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        return probs, weights, ids
+
+    logits = dot_f32(x, whole(router))
+    if not is_dtensor(logits):
+        return local(logits)
+    pl = placements(logits.shape, ("batch", None))
+    k_pl = placements((logits.shape[0], top_k), ("batch", None))
+    return shard_map(local, (logits,), (pl,), (pl, k_pl, k_pl))
 
 
 def expert_positions(ids_flat: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -117,24 +146,102 @@ def expert_positions(ids_flat: torch.Tensor, n_experts: int) -> torch.Tensor:
     return torch.empty_like(ids_flat).scatter_(0, order, ranks)
 
 
-def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int):
+def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
+             n_shards: int = 1, experts: Optional[tuple[int, int]] = None):
     """Capacity slabs of the routed pairs of tokens ``x (T, D)`` with expert
     ids ``ids (T, k)``.
 
-    Returns ``(slab (E, C, D), rows (T * k,), keep (T * k,))``: the slab row of
-    each pair (token-major, k-minor) and whether it was kept.  A dropped
-    pair's row is the spare row ``E * C`` past the slabs; unfilled slab rows,
-    and so every row of an expert no pair chose, are zeros.
+    The pairs (token-major, k-minor) fall into ``n_shards`` equal runs, one
+    per dispatch shard; each expert's capacity splits into one slice of
+    ``capacity / n_shards`` per shard, and a pair's position is counted
+    among the earlier pairs of its expert in its own shard (the reference's
+    slab ``(E, ns, cap/ns, D)``, the per-shard running count).  With
+    ``experts = (e0, n)`` only experts ``e0 .. e0 + n - 1`` get slabs (a
+    rank's expert slice) and pairs routed elsewhere count as dropped here.
+
+    Returns ``(slab (n, capacity, D), rows (T * k,), keep (T * k,))``: the
+    slab row of each pair and whether it was kept.  A dropped pair's row is
+    the spare row ``n * capacity`` past the slabs; unfilled slab rows, and
+    so every row of an expert no pair chose, are zeros.
     """
     t, top_k = ids.shape
-    ids_flat = ids.reshape(t * top_k)
-    pos = expert_positions(ids_flat, n_experts)
-    keep = pos < capacity
-    rows = torch.where(keep, ids_flat * capacity + pos, n_experts * capacity)
-    pair_token = torch.arange(t * top_k, device=x.device) // top_k
-    slab = x.new_zeros((n_experts * capacity + 1, x.shape[1]))
+    n_pairs = t * top_k
+    cap_l = capacity // n_shards
+    ids_flat = ids.reshape(n_pairs)
+    key = ids_flat  # the (expert, shard) slice of each pair
+    if n_shards > 1:
+        shard = torch.arange(n_pairs, device=x.device) // (n_pairs // n_shards)
+        key = ids_flat * n_shards + shard
+    pos = expert_positions(key, n_experts * n_shards)
+    keep = pos < cap_l
+    e0, n_exp = experts or (0, n_experts)
+    if experts is not None:
+        keep = keep & (ids_flat >= e0) & (ids_flat < e0 + n_exp)
+    n_rows = n_exp * capacity
+    rows = torch.where(keep, (key - e0 * n_shards) * cap_l + pos, n_rows)
+    pair_token = torch.arange(n_pairs, device=x.device) // top_k
+    slab = x.new_zeros((n_rows + 1, x.shape[1]))
     slab[rows] = x[pair_token]
-    return slab[: n_experts * capacity].view(n_experts, capacity, x.shape[1]), rows, keep
+    return slab[:n_rows].view(n_exp, capacity, x.shape[1]), rows, keep
+
+
+def _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts: int, capacity: int,
+                    n_shards: int, e0: Optional[int], experts):
+    """The routed experts' combined output ``(T, D)`` in float32 of tokens
+    ``x (T, D)``: dispatch, the expert FFN ``experts`` over the slabs, each
+    kept pair's output gathered back and weighted.  ``e0`` set: the weights
+    hold experts ``e0 ..`` only, and pairs routed elsewhere add nothing."""
+    t, top_k = ids.shape
+    d = x.shape[1]
+    window = None if e0 is None else (e0, w_gate.shape[0])
+    slab, rows, keep = dispatch(x, ids, n_experts, capacity, n_shards, window)
+    out_slab = experts(slab, w_gate, w_up, w_down)
+
+    # A dropped pair reads a slab row of its own (its pair index; the value is
+    # masked out), not one shared row: in the backward pass the gather's
+    # index-add would otherwise sum every dropped pair into one row, in turn.
+    n_rows = slab.shape[0] * capacity
+    spread = torch.arange(t * top_k, device=x.device) % n_rows
+    y_pairs = out_slab.view(n_rows, d)[torch.where(keep, rows, spread)]
+    y_pairs = y_pairs.float().masked_fill(~keep[:, None], 0.0)  # (T * k, D)
+    return (y_pairs * weights.reshape(t * top_k, 1)).reshape(t, top_k, d).sum(dim=1)
+
+
+def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: int, ns: int,
+                            experts, expert_perm):
+    """:func:`_routed_experts` on DTensors, on each rank's shards.
+
+    The tokens stay split over the data axes when the dispatch shards
+    match them (each rank scatters into its own capacity slices; no
+    collective), else they are gathered whole.  When E divides the 'model'
+    axis, each rank builds and runs only its expert slice, and the output
+    is a partial sum over 'model' (the combine's one all-reduce);
+    otherwise every rank runs every expert."""
+    from torch.distributed.tensor import Replicate
+
+    prof = get_activation_sharding()
+    tp = next((a for a in prof.logical.get("model", ()) if a in prof.mesh.mesh_dim_names), None)
+    tp_size = prof.axis_size((tp,)) if tp else 1
+    split = tp_size > 1 and n_experts % tp_size == 0
+    x_pl = placements(x.shape, ("batch", None))
+    ways = math.prod(n for n, pl in zip(prof.mesh.shape, x_pl) if not isinstance(pl, Replicate))
+    if ns % ways:
+        ns, x_pl = 1, placements(x.shape, (None, None))
+        ways = 1
+    w_pl = placements(params["w_gate"].shape, ("model" if split else None, None, None))
+    y_pl = placements(x.shape, ("batch" if ways > 1 else None, None),
+                      partial=(tp,) if split else ())
+
+    def local(x, ids, weights, w_gate, w_up, w_down):
+        if expert_perm is not None:
+            ids = expert_perm.to(ids.device)[ids]
+        e0 = local_index(tp, True) * w_gate.shape[0] if split else None
+        return _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts,
+                               capacity // ways, ns // ways, e0, experts)
+
+    y = shard_map(local, (x, ids, weights, params["w_gate"], params["w_up"], params["w_down"]),
+                  (x_pl, x_pl, x_pl, w_pl, w_pl, w_pl), y_pl)
+    return y.redistribute(prof.mesh, placements(x.shape, ("batch" if ways > 1 else None, None)))
 
 
 def moe_ffn(
@@ -146,38 +253,43 @@ def moe_ffn(
     *,
     norm_topk: bool = True,
     expert_perm: Optional[torch.Tensor] = None,
+    n_dispatch_shards: int = 1,
     train: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (T, D), aux load-balancing loss).
 
-    ``train`` runs the experts through ``swiglu`` (differentiable) in place
-    of the ``moe_mlp`` kernel (forward only)."""
+    ``n_dispatch_shards`` (the data-parallel degree under a mesh profile)
+    splits each expert's capacity into per-shard slices, the reference's
+    slab ``(E, ns, cap/ns, D)`` (see :func:`dispatch`); it falls back to 1
+    where tokens or capacity do not split into shards of at least ``top_k``
+    slots, as the reference's does.  ``train`` runs the experts through
+    ``swiglu`` (differentiable) in place of the ``moe_mlp`` kernel (forward
+    only)."""
     t, d = x.shape
+    x = grad_layout(x, "batch", None)
     probs, weights, ids = route(x, params["router"], top_k, norm_topk)
     aux = router_load_balancing_loss(probs, ids, n_experts)
-    if expert_perm is not None:
-        ids = expert_perm.to(ids.device)[ids]  # logical -> physical slot
-    if _routing is not None:
-        _routing.append(ids)
-
-    slab, rows, keep = dispatch(x, ids, n_experts, capacity)
+    ns = n_dispatch_shards
+    if ns < 1 or t % ns or capacity % ns or capacity // ns < top_k:
+        ns = 1  # decode-sized batches: slices would be thinner than top_k
     experts = swiglu if train else moe_mlp
-    out_slab = experts(slab, params["w_gate"], params["w_up"], params["w_down"])
 
-    # A dropped pair reads a slab row of its own (its pair index; the value is
-    # masked out), not one shared row: in the backward pass the gather's
-    # index-add would otherwise sum every dropped pair into one row, in turn.
-    n_rows = n_experts * capacity
-    spread = torch.arange(t * top_k, device=x.device) % n_rows
-    y_pairs = out_slab.view(n_rows, d)[torch.where(keep, rows, spread)]
-    y_pairs = y_pairs.float().masked_fill(~keep[:, None], 0.0)  # (T * k, D)
-    y = (y_pairs * weights.reshape(t * top_k, 1)).reshape(t, top_k, d).sum(dim=1)
+    if is_dtensor(x):
+        y = _routed_experts_sharded(x, ids, weights, params, n_experts, capacity, ns, experts,
+                                    expert_perm)
+    else:
+        if expert_perm is not None:
+            ids = expert_perm.to(ids.device)[ids]  # logical -> physical slot
+        if _routing is not None:
+            _routing.append(ids)
+        y = _routed_experts(x, ids, weights, params["w_gate"], params["w_up"],
+                            params["w_down"], n_experts, capacity, ns, None, experts)
     y = y.to(x.dtype)
 
     if "shared" in params:
         sp = params["shared"]
-        hs = (F.silu(dot_f32(x, sp["w_gate"])) * dot_f32(x, sp["w_up"])).to(x.dtype)
-        ys = hs @ sp["w_down"]
-        sg = torch.sigmoid(dot_f32(x, sp["gate"]))  # (T, 1)
+        hs = (F.silu(dot_f32(x, col(sp["w_gate"]))) * dot_f32(x, col(sp["w_up"]))).to(x.dtype)
+        ys = linear(hs, row(sp["w_down"]))
+        sg = torch.sigmoid(dot_f32(x, whole(sp["gate"])))  # (T, 1)
         y = y + (ys.float() * sg).to(x.dtype)
     return y, aux

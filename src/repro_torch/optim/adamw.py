@@ -17,6 +17,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..models.params import tree_leaves, tree_map
+from ..models.spmd import full, is_dtensor
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
 
@@ -45,7 +46,8 @@ def _state_dtype(cfg: AdamWConfig, p: torch.Tensor):
 
 def adamw_init(cfg: AdamWConfig, params: Any) -> dict:
     """Zero moments beside ``params``; ``count`` on the first leaf's device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=_state_dtype(cfg, p), device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=_state_dtype(cfg, p),
+                                       memory_format=torch.contiguous_format)
     device = tree_leaves(params)[0].device
     return {
         "m": tree_map(zeros, params),
@@ -55,7 +57,19 @@ def adamw_init(cfg: AdamWConfig, params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+    """The L2 norm over every leaf (a plain 0-d tensor; DTensor leaves are
+    reduced over their mesh)."""
+    return torch.sqrt(sum(full(torch.sum(torch.square(g.float()))) for g in tree_leaves(tree)))
+
+
+def _local(x, like=None):
+    """The rank's shard of a DTensor (first given ``like``'s placements);
+    a plain tensor as it is.  Writing into the shard writes the DTensor."""
+    if not is_dtensor(x):
+        return x
+    if like is not None and x.placements != like.placements:
+        x = x.redistribute(like.device_mesh, like.placements)
+    return x.to_local()
 
 
 @torch.no_grad()
@@ -76,6 +90,7 @@ def adamw_update(cfg: AdamWConfig, grads: Any, state: dict, params: Any):
 
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
                           tree_leaves(state["v"])):
+        p, g, m, v = _local(p), _local(g, p), _local(m), _local(v)  # updates are per shard
         gf = g.float() * scale
         mf, vf = m.float(), v.float()  # the moments themselves when float32
         mf.mul_(cfg.b1).add_(gf, alpha=1 - cfg.b1)

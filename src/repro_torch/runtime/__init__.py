@@ -1,5 +1,6 @@
 """Runtime of the port: typed EP-SpMV requests, LM serving steps, the train
-step, and the fault-tolerance pieces replicated serving and training stand on.
+step, the sharding rules and activation hints of a mesh, and the
+fault-tolerance pieces replicated serving and training stand on.
 
 ``fault`` is imported eagerly (standard library only); the request, serving
 and training names load their modules on first use (PEP 562), so that
@@ -24,6 +25,13 @@ _LAZY = {
     "ServeInfo": "request",
     "ServeResult": "request",
     "resolve_plan": "request",
+    "ShardingRules": "sharding",
+    "batch_specs": "sharding",
+    "cache_spec_tree": "sharding",
+    "make_sharding_rules": "sharding",
+    "named": "sharding",
+    "param_specs": "sharding",
+    "tree_named": "sharding",
     "make_decode_step": "serve",
     "make_prefill_step": "serve",
     "TrainState": "train",

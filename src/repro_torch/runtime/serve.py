@@ -8,13 +8,21 @@ from __future__ import annotations
 
 import torch
 
+from .axes import hint
+
 __all__ = ["make_decode_step", "make_prefill_step"]
+
+
+def _greedy(logits) -> torch.Tensor:
+    """The argmax token of each row, int32; on a mesh the vocabulary is
+    gathered whole first (each rank keeps its batch rows)."""
+    return torch.argmax(hint(logits, "batch", None), dim=-1).to(torch.int32)
 
 
 def make_prefill_step(model, max_len: int):
     def prefill_step(params, batch: dict):
         logits, cache = model.prefill(params, batch, max_len)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return _greedy(logits), cache
 
     return prefill_step
 
@@ -23,6 +31,6 @@ def make_decode_step(model):
     def decode_step(params, cache: dict, tokens: torch.Tensor, pos: int):
         """tokens: (B, 1) int; pos: the write position."""
         logits, cache = model.decode_step(params, cache, {"tokens": tokens}, pos)
-        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
+        return _greedy(logits)[:, None], cache
 
     return decode_step

@@ -26,6 +26,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..models.params import Params, tree_map
+from ..models.spmd import full, is_dtensor, place, replicated_like
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["TrainState", "make_train_step", "init_train_state", "split_microbatches"]
@@ -49,9 +50,17 @@ def init_train_state(model, opt_cfg: AdamWConfig, seed: int = 0) -> TrainState:
 
 
 def split_microbatches(batch: dict, n: int) -> dict:
-    """(B, ...) -> (n, B/n, ...); positions3 (3, B, S) -> (n, 3, B/n, S)."""
+    """(B, ...) -> (n, B/n, ...); positions3 (3, B, S) -> (n, 3, B/n, S).
+
+    A DTensor input is gathered whole first, and each microbatch comes back
+    as a list entry placed over the data axes again: microbatch ``i`` holds
+    the same rows as on one device (a reshape of the sharded batch would
+    give one data shard's rows to each microbatch)."""
 
     def split(k, x):
+        if is_dtensor(x):
+            spec = (None, "batch", None) if k == "positions3" else ("batch",) + (None,) * (x.dim() - 1)
+            return [place(mb, *spec) for mb in split(k, full(x))]
         axis = 1 if k == "positions3" else 0
         b = x.shape[axis]
         if b % n:
@@ -97,15 +106,15 @@ def make_train_step(
         if num_microbatches == 1:
             loss, metrics = model.loss_fn(params, batch)
             add(loss)
-            loss = loss.detach()
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            loss = full(loss.detach())
+            metrics = {k: full(v.detach()) for k, v in metrics.items()}
         else:
             mbs = split_microbatches(batch, num_microbatches)
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(num_microbatches):
                 mb_loss, _ = model.loss_fn(params, {k: v[i] for k, v in mbs.items()})
                 add(mb_loss)
-                loss = loss + mb_loss.detach()
+                loss = loss + full(mb_loss.detach())
             inv = 1.0 / num_microbatches
             loss = loss * inv
             metrics = {}
@@ -117,7 +126,8 @@ def make_train_step(
             acc = {p: p.grad for p in masters}
         if num_microbatches > 1:
             for g in acc.values():
-                g.mul_(torch.tensor(inv, dtype=g.dtype))
+                scalar = torch.tensor(inv, dtype=g.dtype, device=g.device if is_dtensor(g) else "cpu")
+                g.mul_(replicated_like(g, scalar))
         grads = tree_map(acc.__getitem__, params.graph_tree())
         if grad_transform is not None:
             grads = grad_transform(grads)

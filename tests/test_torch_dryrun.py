@@ -1,0 +1,200 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) on a fake group of 512 ranks.
+
+The dry-run's own work runs in a child process (``python
+tests/test_torch_dryrun.py --child``: the fake process group is global
+state, kept out of the test worker).  It builds the cells that
+``chip_smoke.py``'s ``dryrun`` phase runs — qwen3-moe-30b-a3b ``train_4k``
+and ``decode_32k`` on 16x16 and 2x16x16, jamba-1.5-large-398b
+``decode_32k`` and mamba2-2.7b ``long_500k`` on 16x16 — and reports each
+one's per-device argument bytes, which must equal EXACTLY the byte sum of
+the local shards that the reference's specs imply for the reference's own
+abstract arguments (train state with AdamW moments, serving's bf16 weights,
+the batch, the decode cache, tokens and position).  It also runs three
+cells end to end, and checks that the counters count one rank's shards:
+the FLOPs of a product of DTensors on a 16x16 mesh are the local shards'
+(FlopCounterMode over DTensors would report the global product), and a
+gather is priced by the ring model.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = [("qwen3-moe-30b-a3b", "train_4k", False), ("qwen3-moe-30b-a3b", "train_4k", True),
+         ("qwen3-moe-30b-a3b", "decode_32k", False), ("qwen3-moe-30b-a3b", "decode_32k", True),
+         ("jamba-1.5-large-398b", "decode_32k", False), ("mamba2-2.7b", "long_500k", False)]
+RUN = [("mamba2-2.7b", "long_500k", False), ("qwen3-moe-30b-a3b", "decode_32k", False),
+       ("granite-3-8b", "prefill_32k", False)]
+
+
+def _child() -> None:
+    """Everything that needs the fake group, printed as one JSON line."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, make_production_mesh
+
+    dryrun.init_fake_world()
+    out = {"arg_bytes": {}, "runs": {}}
+    host, pods = make_host_mesh("cpu"), make_production_mesh(multi_pod=True)
+    out["meshes"] = [[host.device_type, list(host.shape), list(host.mesh_dim_names)],
+                     [list(pods.shape), list(pods.mesh_dim_names)]]
+    try:
+        make_mesh((2, 32, 16), ("pod", "data", "model"))
+    except RuntimeError as e:
+        out["too_small"] = str(e)
+    builders = {"train": dryrun.build_train, "prefill": dryrun.build_prefill}
+    for arch, shape, mp in CELLS:
+        mesh = make_production_mesh(multi_pod=mp)
+        kind = SHAPES[shape].kind
+        _, args, _ = builders.get(kind, dryrun.build_decode)(get_config(arch), SHAPES[shape], mesh)
+        out["arg_bytes"][f"{arch}/{shape}/{mp}"] = dryrun.local_bytes(args)
+    for arch, shape, mp in RUN:
+        rec = dryrun.run_cell(arch, shape, mp, out_dir=None, verbose=False)
+        out["runs"][f"{arch}/{shape}/{mp}"] = {k: rec.get(k) for k in (
+            "status", "error", "memory", "cost_model", "roofline", "chips", "mode")}
+
+    mesh = make_production_mesh()
+    x = distribute_tensor(torch.empty(4096, 2048, device="meta"), mesh, [Shard(0), Replicate()])
+    w = distribute_tensor(torch.empty(2048, 8192, device="meta"), mesh, [Replicate(), Shard(1)])
+    xs = distribute_tensor(torch.empty(4096, 2048, device="meta"), mesh, [Replicate(), Shard(1)])
+    ws = distribute_tensor(torch.empty(2048, 8192, device="meta"), mesh, [Replicate(), Shard(0)])
+    with dryrun.Counters() as c:
+        x @ w
+    with dryrun.Counters() as p:
+        xs @ ws  # contraction over 'model': each rank a partial product
+    with dryrun.Counters() as g:
+        x.redistribute(mesh, [Replicate(), Replicate()])
+    out["counters"] = {"mm": c.flops, "partial_mm": p.flops, "gather": g.collectives.op_bytes,
+                       "gather_counts": g.collectives.op_counts}
+    print(json.dumps(out))
+
+
+@pytest.fixture(scope="module")
+def child():
+    proc = subprocess.run([sys.executable, __file__, "--child"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _reference_arg_bytes(arch, shape_name, multi_pod) -> int:
+    """Bytes of one device's shards of the reference dry-run's arguments,
+    from the reference's abstract arguments and specs (a spec-only mesh)."""
+    import jax
+    import numpy as np
+
+    import repro.core  # noqa: F401  (before repro.kernels: import cycle)
+    from repro.configs import SHAPES, get_config
+    from repro.launch.specs import decode_input_specs, prefill_input_specs, train_input_specs
+    from repro.models import Model
+    from repro.models.transformer import cast_params_for_compute
+    from repro.optim import AdamWConfig
+    from repro.runtime import init_train_state
+    from repro.runtime.sharding import (batch_specs, cache_spec_tree, make_sharding_rules,
+                                        param_specs)
+
+    class FakeMesh:
+        def __init__(self, shape, axes):
+            self.shape = dict(zip(axes, shape))
+            self.axis_names = axes
+
+    mesh = (FakeMesh((2, 16, 16), ("pod", "data", "model")) if multi_pod
+            else FakeMesh((16, 16), ("data", "model")))
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    model = Model(cfg)
+
+    def local(leaf, spec) -> int:
+        n = 1
+        for d, entry in zip(leaf.shape, tuple(spec) + (None,) * (len(leaf.shape) - len(spec))):
+            names = entry if isinstance(entry, tuple) else (entry,)
+            n *= d // math.prod(mesh.shape[a] for a in names if a is not None)
+        return n * np.dtype(leaf.dtype).itemsize
+
+    def total(tree, specs) -> int:
+        leaves = jax.tree_util.tree_leaves(tree)
+        spec_leaves = jax.tree_util.tree_leaves(specs, is_leaf=lambda s: isinstance(
+            s, jax.sharding.PartitionSpec))
+        assert len(leaves) == len(spec_leaves)
+        return sum(local(a, s) for a, s in zip(leaves, spec_leaves))
+
+    P = jax.sharding.PartitionSpec
+    if shape.kind == "train":
+        rules = make_sharding_rules(mesh, "train")
+        state = jax.eval_shape(lambda k: init_train_state(
+            model, AdamWConfig(lr=1e-4, state_dtype=None), k), jax.random.PRNGKey(0))
+        ps = param_specs(state.params, rules)
+        batch = train_input_specs(cfg, shape)
+        return (3 * total(state.params, ps) + 8  # params, m, v; count and step int32
+                + total(batch, batch_specs(batch, rules)))
+    rules = make_sharding_rules(mesh, "serve")
+    params = jax.eval_shape(lambda k: cast_params_for_compute(model.init(k), cfg),
+                            jax.random.PRNGKey(0))
+    n = total(params, param_specs(params, rules))
+    if shape.kind == "prefill":
+        batch = prefill_input_specs(cfg, shape)
+        return n + total(batch, batch_specs(batch, rules))
+    ins = decode_input_specs(cfg, shape)
+    return (n + total(ins["cache"], cache_spec_tree(ins["cache"], rules))
+            + total(ins["tokens"], P(None, None)) + total(ins["pos"], P()))
+
+
+@pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
+def test_argument_bytes_equal_reference_spec_sums(child, arch, shape, multi_pod):
+    got = child["arg_bytes"][f"{arch}/{shape}/{multi_pod}"]
+    assert got == _reference_arg_bytes(arch, shape, multi_pod)
+
+
+@pytest.mark.parametrize("arch,shape,multi_pod", RUN)
+def test_dryrun_cell_writes_the_reference_schema(child, arch, shape, multi_pod):
+    rec = child["runs"][f"{arch}/{shape}/{multi_pod}"]
+    assert rec["status"] == "ok", rec["error"]
+    mem, cost, roof = rec["memory"], rec["cost_model"], rec["roofline"]
+    assert rec["chips"] == 256
+    assert mem["argument_size_in_bytes"] == child["arg_bytes"].get(
+        f"{arch}/{shape}/{multi_pod}", mem["argument_size_in_bytes"])
+    assert mem["per_device_total_bytes"] == (mem["argument_size_in_bytes"]
+                                             + mem["output_size_in_bytes"]
+                                             + mem["temp_size_in_bytes"])
+    for key in ("compute_s", "memory_s", "collective_s", "dominant", "step_time_s",
+                "model_flops", "hlo_flops_total", "useful_flops_ratio", "roofline_fraction"):
+        assert key in roof
+    assert roof["step_time_s"] == max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    assert cost["flops_per_chip"] > 0 and cost["eager_op_bytes_per_chip"] > 0
+    if arch == "qwen3-moe-30b-a3b":  # 48 MoE layers, each through the expert-FFN kernel
+        assert cost["kernel_calls"] == {"moe_mlp": 48}
+        assert cost["collective_bytes_per_chip"] > 0
+    if arch == "granite-3-8b":  # prefill: flash once a layer, no expert FFN
+        assert cost["kernel_calls"] == {"flash_attention": 40}
+    if arch == "mamba2-2.7b":
+        assert cost["kernel_calls"] == {}
+
+
+def test_meshes(child):
+    """The host mesh is 1x1 over the asked device; the production meshes have
+    the reference's shapes and axes; a mesh larger than the world raises."""
+    assert child["meshes"] == [["cpu", [1, 1], ["data", "model"]],
+                               [[2, 16, 16], ["pod", "data", "model"]]]
+    assert "need 1024 ranks" in child["too_small"]
+
+
+def test_counters_count_local_shards(child):
+    c = child["counters"]
+    assert c["mm"] == 2 * (4096 // 16) * 2048 * (8192 // 16)  # not 2 * 4096 * 2048 * 8192
+    assert c["partial_mm"] == 2 * 4096 * (2048 // 16) * 8192
+    # all-gather over 'data' (16): each rank sends 15/16 of the gathered bytes
+    assert c["gather"] == {"all-gather": 4096 * 2048 * 4 * 15 / 16}
+    assert c["gather_counts"] == {"all-gather": 1}
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["--child"]:
+    _child()

@@ -581,3 +581,65 @@ def test_kernel_wrappers_refuse_gradients_on_card(cuda_device):
     after = launch_counts()
     assert after["flash_attention"] == before["flash_attention"] + 1
     assert after["moe_mlp"] == before["moe_mlp"] + 1
+
+
+@pytest.fixture()
+def host_mesh(cuda_device):
+    """A one-rank NCCL group and the 1x1 ('data', 'model') mesh over the
+    card, with the serve profile installed; torn down after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.axes import ActivationSharding, set_activation_sharding
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    mesh = make_host_mesh()
+    set_activation_sharding(ActivationSharding(mesh, {"batch": ("data",), "model": ("model",)}))
+    try:
+        yield mesh
+    finally:
+        set_activation_sharding(None)
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b"])
+def test_sharded_prefill_on_card_matches_unsharded(host_mesh, no_tf32, arch):
+    """The weights as DTensors on the 1x1 mesh (the serve rules): prefill and
+    two decode steps give the unsharded run's tokens and logits (1e-4), and
+    launch the kernels as many times: the local shards reach the kernels,
+    never a DTensor and never the twins."""
+    from repro_torch.runtime.serve import make_prefill_step
+    from repro_torch.runtime.sharding import distribute_params, make_sharding_rules, param_specs
+
+    cfg = get_config(arch, reduced=True)
+    model = Model(cfg, device="cuda")
+    params = model.init(0)
+    sharded = distribute_params(params, param_specs(params, make_sharding_rules(host_mesh,
+                                                                                "serve")),
+                                host_mesh)
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(2, cfg.vocab_size, (2, 24)))
+    prefill = make_prefill_step(model, 27)
+    runs = {}
+    for name, p in (("plain", params), ("sharded", sharded)):
+        before = launch_counts()
+        with torch.no_grad():
+            tok, cache = prefill(p, {"tokens": prompt.cuda()})
+            logits = []
+            for i in range(2):
+                tok = tok.full_tensor() if hasattr(tok, "full_tensor") else tok
+                lg, cache = model.decode_step(p, cache, {"tokens": tok[:, None]}, 24 + i)
+                lg = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+                logits.append(lg)
+                tok = torch.argmax(lg, -1).to(torch.int32)
+        after = launch_counts()
+        runs[name] = (logits, {k: after[k] - before[k] for k in after})
+    for got, want in zip(runs["sharded"][0], runs["plain"][0]):
+        assert torch.equal(torch.argmax(got, -1), torch.argmax(want, -1))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert runs["sharded"][1] == runs["plain"][1]
+    assert runs["plain"][1]["flash_attention"] == cfg.n_layers

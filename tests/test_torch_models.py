@@ -155,6 +155,55 @@ def test_moe_ffn_matches_reference(arch, capacity):
     np.testing.assert_allclose(aux.item(), float(want_aux), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_moe_ffn_dispatch_shards_match_reference(arch, n_shards):
+    """``n_dispatch_shards``: each shard's pairs fill their own slice of
+    capacity / ns, so an expert that overflows one shard's slice drops pairs
+    a single slab would keep.  The capacity here makes that happen (checked),
+    so the output differs from ns = 1 (the control) and must equal the
+    reference's at the same ns."""
+    cfg, _, jp, port = _pair(arch)
+    e = cfg.moe
+    t, cap = 48, 16
+    x = np.random.default_rng(3).standard_normal((t, cfg.d_model)).astype(np.float32)
+    jparams = jax.tree.map(lambda a: a[0], jp["blocks"]["ffn"]["moe"])
+    pparams = port.blocks[0].ffn.moe
+    _, _, ids = route(torch.from_numpy(x), pparams["router"], e.top_k)
+    per_shard = ids.reshape(n_shards, -1)
+    worst = max(int(np.bincount(r.numpy(), minlength=e.n_experts).max()) for r in per_shard)
+    assert worst > cap // n_shards  # a shard's slice overflows
+    want, want_aux = jax_moe_ffn(jnp.asarray(x), jparams, e.n_experts, e.top_k, cap,
+                                 n_dispatch_shards=n_shards)
+    y, aux = moe_ffn(torch.from_numpy(x), pparams, e.n_experts, e.top_k, cap,
+                     n_dispatch_shards=n_shards)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(aux.item(), float(want_aux), rtol=1e-6, atol=1e-6)
+    flat, _ = moe_ffn(torch.from_numpy(x), pparams, e.n_experts, e.top_k, cap)
+    assert (flat - y).abs().max() > 1e-3  # the control: one slab keeps what a slice drops
+
+
+@pytest.mark.parametrize("n_shards", [3, 5, 64])
+def test_moe_ffn_dispatch_shards_fall_back_to_one(n_shards):
+    """Shards that do not divide the tokens or capacity, or slices thinner
+    than top_k, fall back to one slab, as the reference's."""
+    cfg, _, jp, port = _pair("qwen3-moe-30b-a3b")
+    e = cfg.moe
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((32, cfg.d_model))).float()
+    p = port.blocks[0].ffn.moe
+    flat, _ = moe_ffn(x, p, e.n_experts, e.top_k, 8)
+    got, _ = moe_ffn(x, p, e.n_experts, e.top_k, 8, n_dispatch_shards=n_shards)
+    torch.testing.assert_close(got, flat, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_abstract_params_are_storage_free(arch):
+    cfg = get_config(arch)  # full width: nothing is drawn or allocated
+    meta = Model(cfg, "meta").abstract_params()
+    assert all(p.device.type == "meta" for p in meta.parameters())
+    assert sum(p.numel() for p in meta.parameters()) == param_count(cfg)["total"]
+
+
 @pytest.mark.parametrize("n_experts,n_pairs", [(8, 48), (128, 4096), (3, 1)])
 def test_expert_positions_equal_the_one_hot_running_count(n_experts, n_pairs):
     ids = np.random.default_rng(n_pairs).integers(0, n_experts, n_pairs)
