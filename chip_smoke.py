@@ -138,7 +138,10 @@ train rules: loss and gradients within E2E_TOL, no launch.  ``dryrun``:
 train_4k and decode_32k on 16x16 and 2x16x16, jamba decode_32k, mamba2
 long_500k), each in a process of its own started before ``train_checks``
 and running beside them on the host's cores: every cell ``ok``, one line
-each with the modeled per-device GB, roofline terms and ``mfu``; and the
+each with the modeled per-device GB, roofline terms and ``mfu``, its
+collective bytes and the part of them whose input is parameter storage,
+which must be 0 in every decode cell (the serve rules' weights stay where
+they are put; decode moves activations); and the
 dry-run's predictions on a 1x1 mesh for the two ``sharded`` cuts beside the
 card's own peak memory and wall time there.
 
@@ -2024,7 +2027,8 @@ class DryRun:
         import os
 
         root = Path(__file__).resolve().parent
-        env = {**os.environ, "PYTHONPATH": str(root / "src")}
+        # meta tensors in a fake group: no card is needed, none is touched
+        env = {**os.environ, "PYTHONPATH": str(root / "src"), "CUDA_VISIBLE_DEVICES": ""}
         self.dir = root / "experiments" / "dryrun_torch"
         self.dir.mkdir(parents=True, exist_ok=True)
         self.t0 = time.perf_counter()
@@ -2065,10 +2069,13 @@ def phase_dryrun(dry: DryRun, sharded):
     """The dry-run's records, read when its processes end: one line per
     cell with its status, per-device GB, the three roofline terms, the
     dominant one and ``mfu``, all modeled from the H100's data-sheet
-    constants.  Then the same builders' predictions on a 1x1 mesh for
+    constants, and its collective bytes with the part of them whose input
+    is parameter storage (``param_gather_bytes``, from the cell's record).
+    Then the same builders' predictions on a 1x1 mesh for
     ``phase_sharded``'s two cuts: the per-device bytes and roofline step
     time beside the card's own peak memory and wall time from that phase.
-    Every cell must be ``ok``."""
+    Every cell must be ``ok``, and every decode cell must gather no
+    parameter bytes."""
     rc, out, err = dry.result("1x1")
     if rc != 0:
         raise AssertionError(f"--dryrun-1x1 failed: {err[-4000:]}")
@@ -2081,7 +2088,12 @@ def phase_dryrun(dry: DryRun, sharded):
         rec = json.loads(lines[-1]) if lines else {"status": "no output"}
         if rc != 0 or rec.get("status") != "ok":
             raise AssertionError(f"dry-run {name}: {rec} {err[-2000:]}")
+        full = json.loads((dry.dir / f"{name}.json").read_text())
+        cost = full["cost_model"]
+        rec.update({k: cost[k] for k in ("collective_bytes_per_chip", "param_gather_bytes")})
         _emit({"phase": "dryrun_cell", "modeled": "H100 data-sheet constants", **rec})
+        if full["kind"] == "decode" and cost["param_gather_bytes"] != 0:
+            raise AssertionError(f"dry-run {name} gathers parameters at decode: {rec}")
     card = {"serve": {"peak_bytes": sharded["serve"]["warm_prefill_peak_bytes"],
                       "wall_ms": sharded["serve"]["warm_prefill_ms"]},
             "train": {"peak_bytes": sharded["train"]["step_peak_bytes"],

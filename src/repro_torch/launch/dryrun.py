@@ -3,7 +3,9 @@
 Per (arch x shape x mesh) cell this driver:
   1. joins a ``fake`` process group of 512 ranks as rank 0 (no devices, no
      traffic: collectives return at once) and builds the production mesh
-     (16x16 single-pod / 2x16x16 multi-pod) over it;
+     (16x16 single-pod / 2x16x16 multi-pod) over it, typed ``cuda`` as the
+     cards' meshes are, so that DTensor issues the collectives it issues
+     there (an all-to-all where a CPU mesh would all-gather and chunk);
   2. builds the cell's step with every argument a meta-device DTensor placed
      by the sharding rules (``runtime/sharding.py``): parameters, AdamW's
      moments and step, the batch and the decode cache — the counterpart of
@@ -18,13 +20,14 @@ Per (arch x shape x mesh) cell this driver:
          and expert-FFN kernels by their own formulas (a kernel given meta
          tensors runs nothing and reports its products and bytes);
        * collective bytes and counts by op, under the ring model of
-         ``launch/hlo.py``.  They are the port's own program's collectives:
-         ``models/spmd.py``'s ``col``/``row``/``whole`` gather each weight
-         whole over every axis but 'model' where it is used, decode too, so
-         a decode cell's collective term is mostly those weight gathers, a
-         property of the port's products and not of the reference's rules
-         (gathering the few decode activations instead would keep the
-         weights sharded);
+         ``launch/hlo.py``: the port's own program's collectives.  Of them,
+         ``param_gather_bytes`` are those whose input is parameter storage
+         (or a copy of it, or the output of such a gather): the weight
+         gathers.  ``models/spmd.py``'s products gather a weight only where
+         that moves fewer bytes than moving the activation to it (the train
+         rules' FSDP gathers, prefill); at decode the serve rules' weights
+         stay where they are put, and a decode cell's collectives are
+         activations;
        * eager per-op bytes: each op's inputs read and outputs written, on
          local shards, views excluded.  XLA counts bytes at its fusion
          boundaries; an eager op's intermediates are all written and read
@@ -205,9 +208,11 @@ def build_decode(cfg: ArchConfig, shape: ShapeConfig, mesh):
 
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided", "detach",
              "lift_fresh", "alias"}
+_COPIES = {"clone", "_to_copy", "copy_", "constant_pad_nd", "cat", "stack", "wait_tensor",
+           "_wrap_tensor_autograd"}  # the last two: a collective's output, handed on
 _COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
                 "all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
-                "all_to_all_single": "all-to-all"}
+                "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
 
 
 def _tensors(tree):
@@ -236,22 +241,28 @@ def local_bytes(tree) -> int:
 
 class Counters(TorchDispatchMode):
     """Counts what one rank runs: FLOPs, eager op bytes, collectives and the
-    peak of the bytes allocated, on local tensors only.
+    peak of the bytes allocated, on local tensors only.  ``known`` are the
+    step's argument shards (not counted as allocated); ``params`` those of
+    them that are parameters: a collective whose input is their storage, or
+    a copy of it, counts in ``param_gather_bytes`` too.
 
     DTensor ops are handed back (``NotImplemented``) so that DTensor runs
     them and their local ops and collectives come back here; the ops DTensor
     runs on global shapes to propagate shapes (under a fake-tensor mode) are
     skipped."""
 
-    def __init__(self, known=()):
+    def __init__(self, known=(), params=()):
         super().__init__()
         self.flops = 0.0
         self.op_bytes = 0.0
         self.collectives = CollectiveStats()
+        self.param_gather_bytes = 0.0
         self.kernels: dict = {}
         self.live = 0
         self.peak = 0
         self._known = {t.untyped_storage()._cdata for t in known}
+        self._params = {t.untyped_storage()._cdata for t in params}
+        self._copies: set = set()  # storages copied from parameter storage
         self._storages: dict = {}
 
     def _kernel(self, name, flops, nbytes):
@@ -281,13 +292,39 @@ class Counters(TorchDispatchMode):
             weakref.finalize(st, self._free, key)
         self.peak = max(self.peak, self.live)
 
+    def _from_params(self, t) -> bool:
+        key = t.untyped_storage()._cdata
+        return key in self._params or key in self._copies
+
+    def _mark_copy(self, func, args, kwargs, out) -> None:
+        """Follow a copy of parameter storage (``.contiguous()``, a cast, a
+        pad, a concatenation of such copies) to its source, so that a copy
+        cannot hide a gather of it."""
+        name = func._overloadpacket.__name__
+        if name not in _COPIES:
+            return
+        srcs = [args[1]] if name == "copy_" else _tensors((args, kwargs))
+        if srcs and all(self._from_params(t) for t in srcs):
+            self._mark(args[0] if name == "copy_" else out)
+
+    def _mark(self, out) -> None:
+        for t in _tensors(out):
+            key = t.untyped_storage()._cdata
+            if key not in self._copies:
+                self._copies.add(key)
+                weakref.finalize(t.untyped_storage(), self._copies.discard, key)
+
     def _collective(self, op, name, args, out):
         import torch.distributed.distributed_c10d as c10d
 
         group = c10d._resolve_process_group(args[-1])
         n = group.size()
         nbytes = _nbytes(out) if op in ("all-gather", "reduce-scatter") else _nbytes(args[0])
-        self.collectives.add(op, ring_traffic(op, nbytes, n))
+        traffic = ring_traffic(op, nbytes, n)
+        self.collectives.add(op, traffic)
+        if self._from_params(args[0]):  # a gather in steps: its output is followed too
+            self.param_gather_bytes += traffic
+            self._mark(out)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -309,6 +346,8 @@ class Counters(TorchDispatchMode):
         elif not func.is_view and name not in _NO_BYTES:
             self.op_bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
             self.op_bytes += sum(_nbytes(t) for t in _tensors(out))
+            if self._params:
+                self._mark_copy(func, args, kwargs, out)
         self._track(out)
         return out
 
@@ -321,7 +360,8 @@ def _local_tensors(tree) -> list:
 
 
 def _count(fn, args) -> tuple[Counters, Any]:
-    counters = Counters(known=_local_tensors(args))
+    """``fn()`` counted; ``args[0]`` is the step's parameter tree."""
+    counters = Counters(known=_local_tensors(args), params=_local_tensors(args[0]))
     with counters:
         out = fn()
     return counters, out
@@ -347,6 +387,7 @@ def measure(cfg: ArchConfig, shape: ShapeConfig, mesh, num_microbatches=None) ->
         with torch.no_grad() if shape.kind != "train" else torch.enable_grad():
             counters, _ = _count(step, args)
         flops, op_bytes, coll = counters.flops, counters.op_bytes, counters.collectives
+        param_gather = counters.param_gather_bytes
         if loss_step is not None and rec["num_microbatches"] > 1:
             more, _ = _count(loss_step, args)
             k = rec["num_microbatches"] - 1
@@ -357,6 +398,7 @@ def measure(cfg: ArchConfig, shape: ShapeConfig, mesh, num_microbatches=None) ->
                 coll.op_counts[name] = (coll.op_counts.get(name, 0)
                                         + k * more.collectives.op_counts[name])
             coll.per_chip_bytes += k * more.collectives.per_chip_bytes
+            param_gather += k * more.param_gather_bytes
         rec["run_s"] = time.perf_counter() - t1
     finally:
         set_activation_sharding(None)
@@ -375,6 +417,7 @@ def measure(cfg: ArchConfig, shape: ShapeConfig, mesh, num_microbatches=None) ->
         "collective_bytes_per_chip": coll.per_chip_bytes,
         "collective_op_bytes": coll.op_bytes,
         "collective_op_counts": coll.op_counts,
+        "param_gather_bytes": param_gather,
         "kernel_calls": counters.kernels,
     }
     chips = mesh.size()

@@ -20,9 +20,13 @@ __all__ = ["make_host_mesh", "make_mesh", "make_production_mesh"]
 
 
 def _device_type() -> str:
+    """``cpu`` in a gloo group; ``cuda`` in an NCCL group, and in the
+    dry-run's ``fake`` group, which stands for the cards (DTensor then plans
+    its collectives as on them: an all-to-all where a CPU mesh would
+    all-gather and chunk)."""
     import torch.distributed as dist
 
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return "cpu" if dist.get_backend() == "gloo" else "cuda"
 
 
 def make_mesh(shape, axes, device_type=None):

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .spmd import col, row
+from .spmd import col_linear, row_linear
 
 __all__ = [
     "apply_mrope",
@@ -164,9 +164,11 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     """SwiGLU feed-forward: gate and up in float32, ``h`` and the down
     product in the activation type.  Leading axes batch, so the training
     path runs every expert at once over ``(E, C, D)`` slabs and ``(E, D, F)``
-    weights."""
-    h = (F.silu(dot_f32(x, col(w_gate))) * dot_f32(x, col(w_up))).to(x.dtype)
-    return linear(h, row(w_down))
+    weights.  On a mesh the products are :func:`~repro_torch.models.spmd.col_linear`
+    and ``row_linear``: where the weights stay on their shards, ``h`` keeps
+    their F split and the down product's partial sums are reduced."""
+    gate, up = col_linear(x, (w_gate, w_up), dot_f32)
+    return row_linear((F.silu(gate) * up).to(x.dtype), w_down, linear)
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from .layers import init_linear, linear, normal, rms_norm
-from ..runtime.axes import get_activation_sharding
-from .spmd import (col, is_dtensor, local_index, placements, replicated_like, row,
-                   shard_map)
+from ..runtime.axes import get_activation_sharding, hint
+from .spmd import (col_linear, is_dtensor, local_index, placements, replicated_like,
+                   row_linear, rows_move, shard_map, to_layout_of, weight_layout)
 
 __all__ = [
     "ssd_chunked",
@@ -172,8 +172,29 @@ def conv_decode_step(
     """
     dt = torch.promote_types(conv_state.dtype, x_t.dtype)
     window = torch.cat([conv_state.to(dt), x_t[:, None, :].to(dt)], dim=1)  # (B,W,C)
+    return _conv_window(window, w, b, x_t.dtype), window[:, 1:, :]
+
+
+def _conv_window(window, w, b, dtype):
+    """The conv's output ``(B, C)`` of a full window ``(B, W, C)``."""
     y = torch.einsum("bwc,wc->bc", window.float(), w.float())
-    y = (y + b.float()).to(x_t.dtype)
+    return (y + b.float()).to(dtype)
+
+
+def _conv_step_by_weight(x_t, conv_state, w, b):
+    """:func:`conv_decode_step` on DTensors with the conv's weights left on
+    their shards: the window is built in the cache state's layout (the new
+    state goes back there as it is), then laid out as the weights' channels
+    for the product, whose output keeps that layout."""
+    from torch.distributed.tensor import Shard
+
+    as_rows = lambda pls: [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p for p in pls]
+    x_t = x_t.redistribute(x_t.device_mesh, as_rows(conv_state.placements))
+    dt = torch.promote_types(conv_state.dtype, x_t.dtype)
+    window = torch.cat([conv_state.to(dt), x_t[:, None, :].to(dt)], dim=1)
+    win_pl = weight_layout(window, w, 2, 1)
+    y = shard_map(lambda win, w, b: _conv_window(win, w, b, x_t.dtype), (window, w, b),
+                  (win_pl, list(w.placements), list(b.placements)), as_rows(win_pl))
     return y, window[:, 1:, :]
 
 
@@ -277,7 +298,7 @@ def mamba_mixer(
     d_inner = ssm.expand * d
     h = d_inner // ssm.head_dim
     g, n = ssm.n_groups, ssm.d_state
-    proj = linear(x, col(params["in_proj"]))  # float32 sums, rounded to x's type
+    proj = col_linear(x, params["in_proj"], linear)  # float32 sums, rounded to x's type
     z, xbc_raw, dt_raw = _split_proj(proj, d_inner, 2 * g * n, h)
     xbc = _conv_by_channels(xbc_raw, params["conv_w"], params["conv_b"])
     xbc = F.silu(xbc.float()).to(x.dtype)
@@ -293,7 +314,7 @@ def mamba_mixer(
     y = y + (params["D"].reshape(h, 1) * xs.float()).to(y.dtype)
     y = y.reshape(b, s, d_inner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"])
-    out = linear(y, row(params["out_proj"]))
+    out = row_linear(y, params["out_proj"], linear)
     if return_state:
         width = params["conv_w"].shape[0]
         tail = xbc_raw[:, -(width - 1) :, :]
@@ -306,23 +327,42 @@ def mamba_mixer(
 def mamba_decode_step(
     params, x_t: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor, ssm
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token recurrent step.  x_t: (B, D) -> (B, D), updated states."""
+    """One-token recurrent step.  x_t: (B, D) -> (B, D), updated states.
+
+    On a mesh, where the step's rows are fewer bytes to move than its
+    output product's weight (:func:`~repro_torch.models.spmd.rows_move`,
+    decode under the serve rules), every weight of the mixer stays on its
+    shards: the products move the rows (``col_linear``, ``row_linear``);
+    ``in_proj``'s output is laid out whole over its width, rows over the
+    batch axes, so that z, x, B, C and dt are local slices; the conv's
+    window, dt and x beside the per-head weights, and the gated norm's
+    input are laid out as their weights are; the SSD runs on heads over
+    'model'."""
     b, d = x_t.shape
     d_inner = ssm.expand * d
     h = d_inner // ssm.head_dim
     g, n = ssm.n_groups, ssm.d_state
-    proj = linear(x_t, col(params["in_proj"]))
+    proj = col_linear(x_t, params["in_proj"], linear)
+    stationary = rows_move(x_t, params["out_proj"], 0) is not None
+    if stationary:
+        proj = hint(proj, "batch", None)
     z, xbc, dt_raw = _split_proj(proj, d_inner, 2 * g * n, h)
-    xbc, conv_state = conv_decode_step(xbc, conv_state, params["conv_w"], params["conv_b"])
+    conv = _conv_step_by_weight if stationary else conv_decode_step
+    xbc, conv_state = conv(xbc, conv_state, params["conv_w"], params["conv_b"])
     xbc = F.silu(xbc.float()).to(x_t.dtype)
+    if stationary:
+        xbc = hint(xbc, "batch", None)
     xs = xbc[..., :d_inner].reshape(b, h, ssm.head_dim)
     bm = xbc[..., d_inner : d_inner + g * n].reshape(b, g, n)
     cm = xbc[..., d_inner + g * n :].reshape(b, g, n)
+    if stationary:
+        dt_raw, xs = to_layout_of(dt_raw, params["dt_bias"], 1), to_layout_of(xs, params["D"], 1)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y, ssm_state = _by_heads(ssd_decode_step, xs, dt, A, bm, cm, ssm_state, head_dim=1)
     y = y + (params["D"].reshape(h, 1) * xs.float()).to(y.dtype)
-    y = y.reshape(b, d_inner)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"])
-    out = linear(y, row(params["out_proj"]))
+    y = y.reshape(b, d_inner) * F.silu(z.float()).to(y.dtype)
+    if stationary:
+        y = to_layout_of(y, params["norm_w"], 1)
+    out = row_linear(rms_norm(y, params["norm_w"]), params["out_proj"], linear)
     return out, conv_state, ssm_state

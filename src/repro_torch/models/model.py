@@ -26,7 +26,7 @@ from ..runtime.axes import hint
 from . import transformer as tf
 from .layers import dot_f32
 from .params import Params
-from .spmd import col, is_dtensor, local_index, place, placements, shard_map, splits
+from .spmd import col, col_linear, is_dtensor, local_index, place, placements, shard_map, splits
 from .transformer import cast_params_for_compute, cast_params_for_train
 
 __all__ = ["Model", "chunked_ce_loss"]
@@ -153,7 +153,7 @@ class Model:
         ``params`` are the master weights or their :meth:`compute_params`."""
         p = self.compute_params(params)
         h_last, cache = tf.forward_prefill(p, self.cfg, batch, max_len)
-        return dot_f32(h_last, col(tf.lm_head(p, self.cfg))), cache
+        return col_linear(h_last, tf.lm_head(p, self.cfg), dot_f32), cache
 
     def decode_step(self, params: Params, cache: dict, batch: dict, pos):
         """One-token step; returns (logits (B, V) f32, the cache updated in place)."""

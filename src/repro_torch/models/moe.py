@@ -44,7 +44,8 @@ import torch.nn.functional as F
 from ..kernels import moe_mlp
 from ..runtime.axes import get_activation_sharding
 from .layers import dot_f32, init_linear, linear, normal, swiglu
-from .spmd import col, grad_layout, is_dtensor, local_index, placements, row, shard_map, whole
+from .spmd import (all_reduce, col_linear, grad_layout, is_dtensor, local_index, placements,
+                   reduce_rows, row_linear, shard_map, whole)
 
 __all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "recorded_routing",
            "route", "router_load_balancing_loss"]
@@ -186,16 +187,21 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
 
 
 def _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts: int, capacity: int,
-                    n_shards: int, e0: Optional[int], experts):
+                    n_shards: int, e0: Optional[int], experts, sum_slab=None):
     """The routed experts' combined output ``(T, D)`` in float32 of tokens
     ``x (T, D)``: dispatch, the expert FFN ``experts`` over the slabs, each
     kept pair's output gathered back and weighted.  ``e0`` set: the weights
-    hold experts ``e0 ..`` only, and pairs routed elsewhere add nothing."""
+    hold experts ``e0 ..`` only, and pairs routed elsewhere add nothing.
+    ``sum_slab`` set: the weights hold a slice of the F dim, and
+    ``sum_slab`` sums the partial output slabs over the ranks holding the
+    other slices."""
     t, top_k = ids.shape
     d = x.shape[1]
     window = None if e0 is None else (e0, w_gate.shape[0])
     slab, rows, keep = dispatch(x, ids, n_experts, capacity, n_shards, window)
     out_slab = experts(slab, w_gate, w_up, w_down)
+    if sum_slab is not None:
+        out_slab = sum_slab(out_slab)
 
     # A dropped pair reads a slab row of its own (its pair index; the value is
     # masked out), not one shared row: in the backward pass the gather's
@@ -216,32 +222,58 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
     collective), else they are gathered whole.  When E divides the 'model'
     axis, each rank builds and runs only its expert slice, and the output
     is a partial sum over 'model' (the combine's one all-reduce);
-    otherwise every rank runs every expert."""
-    from torch.distributed.tensor import Replicate
+    otherwise every rank runs every expert.
+
+    Where the rules split the experts' F dim as well (over 'data', for a
+    large expert leaf: the reference's compute-stationary experts), the
+    weights stay on their shards when the tokens are the fewer bytes to
+    move (decode): the tokens are gathered over the mesh axes that split F,
+    each rank runs the expert FFN on its ``(E/tp, D, F/data)`` slice, and
+    the partial output slabs are summed over those axes in float32 before
+    the combine.  Otherwise (prefill, and a step that needs the weights'
+    gradients) the F dim is gathered, the weights' layout in every other
+    case."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     prof = get_activation_sharding()
-    tp = next((a for a in prof.logical.get("model", ()) if a in prof.mesh.mesh_dim_names), None)
+    mesh = prof.mesh
+    tp = next((a for a in prof.logical.get("model", ()) if a in mesh.mesh_dim_names), None)
     tp_size = prof.axis_size((tp,)) if tp else 1
     split = tp_size > 1 and n_experts % tp_size == 0
+    ws = (params["w_gate"], params["w_up"], params["w_down"])
     x_pl = placements(x.shape, ("batch", None))
-    ways = math.prod(n for n, pl in zip(prof.mesh.shape, x_pl) if not isinstance(pl, Replicate))
+    f_dims = [d for d, p in enumerate(ws[0].placements)
+              if isinstance(p, Shard) and p.dim == 2 and mesh.size(d) > 1]
+    if f_dims:
+        x_ways = math.prod(mesh.size(d) for d in f_dims if isinstance(x_pl[d], Shard))
+        x_cost = x.to_local().numel() * x.element_size() * (x_ways - 1)
+        w_cost = (sum(w.to_local().numel() * w.element_size() for w in ws)
+                  * (math.prod(mesh.size(d) for d in f_dims) - 1))
+        if x_cost >= w_cost or (torch.is_grad_enabled() and ws[0].requires_grad):
+            f_dims = []  # the F dim is gathered
+    if f_dims:  # the tokens go to the experts' F slices
+        x_pl = [Replicate() if d in f_dims else p for d, p in enumerate(x_pl)]
+    ways = math.prod(n for n, pl in zip(mesh.shape, x_pl) if not isinstance(pl, Replicate))
     if ns % ways:
         ns, x_pl = 1, placements(x.shape, (None, None))
         ways = 1
-    w_pl = placements(params["w_gate"].shape, ("model" if split else None, None, None))
-    y_pl = placements(x.shape, ("batch" if ways > 1 else None, None),
-                      partial=(tp,) if split else ())
+    if f_dims:
+        w_pls = [list(w.placements) for w in ws]
+    else:
+        w_pls = [placements(ws[0].shape, ("model" if split else None, None, None))] * 3
+    names = mesh.mesh_dim_names
+    y_pl = [Partial() if split and names[d] == tp else p for d, p in enumerate(x_pl)]
+    sum_slab = (lambda t: all_reduce(t.float(), f_dims)) if f_dims else None
 
     def local(x, ids, weights, w_gate, w_up, w_down):
         if expert_perm is not None:
             ids = expert_perm.to(ids.device)[ids]
         e0 = local_index(tp, True) * w_gate.shape[0] if split else None
         return _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts,
-                               capacity // ways, ns // ways, e0, experts)
+                               capacity // ways, ns // ways, e0, experts, sum_slab)
 
-    y = shard_map(local, (x, ids, weights, params["w_gate"], params["w_up"], params["w_down"]),
-                  (x_pl, x_pl, x_pl, w_pl, w_pl, w_pl), y_pl)
-    return y.redistribute(prof.mesh, placements(x.shape, ("batch" if ways > 1 else None, None)))
+    y = shard_map(local, (x, ids, weights, *ws), (x_pl, x_pl, x_pl, *w_pls), y_pl)
+    return reduce_rows(y)
 
 
 def moe_ffn(
@@ -288,8 +320,8 @@ def moe_ffn(
 
     if "shared" in params:
         sp = params["shared"]
-        hs = (F.silu(dot_f32(x, col(sp["w_gate"]))) * dot_f32(x, col(sp["w_up"]))).to(x.dtype)
-        ys = linear(hs, row(sp["w_down"]))
+        g, u = col_linear(x, (sp["w_gate"], sp["w_up"]), dot_f32)
+        ys = row_linear((F.silu(g) * u).to(x.dtype), sp["w_down"], linear)
         sg = torch.sigmoid(dot_f32(x, whole(sp["gate"])))  # (T, 1)
         y = y + (ys.float() * sg).to(x.dtype)
     return y, aux

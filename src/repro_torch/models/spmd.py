@@ -21,8 +21,10 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distrib
 
 from ..runtime.axes import get_activation_sharding, resolve, to_placements
 
-__all__ = ["is_dtensor", "local_index", "place", "placements", "replicated_like", "shard_map",
-           "col", "full", "grad_layout", "row", "splits", "whole", "zeros"]
+__all__ = ["all_reduce", "is_dtensor", "local_index", "place", "placements", "replicated_like",
+           "shard_map", "col", "col_linear", "full", "grad_layout", "reduce_rows", "row",
+           "row_linear", "rows_move", "splits", "splits_any", "to_layout_of", "weight_layout",
+           "whole", "zeros"]
 
 
 def is_dtensor(x) -> bool:
@@ -68,6 +70,18 @@ def place(x, *logical):
     return distribute_tensor(x, prof.mesh, pls)
 
 
+def all_reduce(t: torch.Tensor, dims, mesh=None) -> torch.Tensor:
+    """The plain local tensor ``t`` summed over the mesh dims ``dims`` (of
+    ``mesh``, by default the profile's), inside a :func:`shard_map` body.
+    Not differentiable."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = mesh if mesh is not None else get_activation_sharding().mesh
+    for d in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t.contiguous(), "sum", (mesh, d)))
+    return t
+
+
 class _SumGrad(torch.autograd.Function):
     """Identity; the gradient is summed over the mesh dims ``dims``."""
 
@@ -78,11 +92,7 @@ class _SumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed._functional_collectives as funcol
-
-        for d in ctx.dims:
-            g = funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum", (ctx.mesh, d)))
-        return g, None, None
+        return all_reduce(g, ctx.dims, ctx.mesh), None, None
 
 
 class _GradLayout(torch.autograd.Function):
@@ -113,12 +123,11 @@ def _weight(w, *logical):
 
 
 def col(w):
-    """A ``(d_in, d_out)`` weight laid out for a column-parallel product:
-    ``d_out`` over 'model' where it divides, whole over the other axes (the
-    FSDP gather, made where the weight is used, in decode too: under the
-    serve rules' wide ``('model', 'data')`` weights, every decode step
-    gathers them over 'data', the collective bytes the dry-run counts in its
-    decode cells).  A plain ``w`` as it is."""
+    """A ``(d_in, d_out)`` weight gathered for a column-parallel product:
+    ``d_out`` over 'model' where it divides, whole over the other axes.
+    This is the train rules' FSDP gather, and the weight gather that
+    :func:`col_linear` falls back to where a weight is the smaller thing to
+    move (prefill).  A plain ``w`` as it is."""
     return _weight(w, None, "model")
 
 
@@ -126,6 +135,162 @@ def row(w):
     """A ``(d_in, d_out)`` weight laid out for a row-parallel product:
     ``d_in`` over 'model', whole over the other axes."""
     return _weight(w, "model", None)
+
+
+def _shards(p, dim: int) -> bool:
+    return isinstance(p, Shard) and p.dim == dim
+
+
+def _nbytes_local(t) -> int:
+    return t.to_local().numel() * t.element_size()
+
+
+def _ways(mesh, dims) -> int:
+    n = 1
+    for d in dims:
+        n *= mesh.size(d)
+    return n
+
+
+def weight_layout(x, w, x_dim: int, w_dim: int) -> list:
+    """Placements of the DTensor ``x`` with its dim ``x_dim`` laid out as
+    the DTensor ``w`` lays out its dim ``w_dim`` (the same mesh dims, so the
+    same chunks), its dim 0 (rows: batch or tokens) still split over the
+    other mesh dims that split it, and nothing else split.  A mesh dim that
+    splits ``w``'s other dims replicates ``x``."""
+    out = []
+    for px, pw in zip(x.placements, w.placements):
+        if _shards(pw, w_dim):
+            out.append(Shard(x_dim % x.dim()))
+        elif isinstance(pw, Shard) or not _shards(px, 0):
+            out.append(Replicate())
+        else:
+            out.append(Shard(0))
+    return out
+
+
+def to_layout_of(x, w, x_dim: int, w_dim: int = 0):
+    """The DTensor ``x`` redistributed to :func:`weight_layout` (its dim
+    ``x_dim`` split as ``w``'s dim ``w_dim``), so that an elementwise op
+    with ``w`` leaves ``w`` where it is (DTensor's own choice of which
+    operand to move differs between PyTorch versions).  Plain: ``x``."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    return x.redistribute(x.device_mesh, weight_layout(x, w, x_dim, w_dim))
+
+
+def rows_move(x, w, w_dim: int, x_dim: int = -1):
+    """Where the activation should go to the weight: the placements to
+    give ``x`` so that a product (or an elementwise op) with ``w`` runs on
+    ``w``'s own shards (:func:`weight_layout`), or None where gathering
+    ``w`` instead moves fewer bytes.
+
+    Gathering ``w`` means making it whole over every mesh dim of more than
+    one rank that splits it but 'model' (as :func:`col` and :func:`row` do;
+    under the serve rules' wide ``('model', 'data')`` weights, 'data',
+    which the activation's rows also use).  Moving ``x`` means
+    redistributing it from its placements to the weight layout (a slice of
+    a replicated dim moves nothing).  The choice is by bytes, from shapes
+    alone: each side's local bytes times the ranks it would be gathered
+    from, less its own shard.  At decode a few
+    rows are far fewer bytes than a weight shard, so the weight stays where
+    the rules put it; at prefill the rows are the larger, so the weight is
+    gathered.  Plain tensors, a 1x1 mesh, or a weight split over nothing
+    but 'model': None."""
+    if not (is_dtensor(x) and is_dtensor(w)) or any(isinstance(p, Partial) for p in x.placements):
+        return None
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    w_gather = [d for d, p in enumerate(w.placements)
+                if isinstance(p, Shard) and mesh.size(d) > 1 and names[d] != "model"]
+    if not w_gather:
+        return None
+    target = weight_layout(x, w, x_dim, w_dim)
+    x_moved = [d for d, (p, t) in enumerate(zip(x.placements, target))
+               if p != t and not isinstance(p, Replicate) and mesh.size(d) > 1]
+    x_cost = _nbytes_local(x) * (_ways(mesh, x_moved) - 1)
+    w_cost = _nbytes_local(w) * (_ways(mesh, w_gather) - 1)
+    return target if x_cost < w_cost else None
+
+
+def _product_out(x_pl, w, ndim: int) -> list:
+    """Placements of ``x @ w`` computed on the local shards of ``x`` laid
+    out as ``x_pl`` and ``w`` as it is: a partial sum where ``w`` splits the
+    contraction, ``w``'s output split, ``x``'s rows."""
+    out = []
+    for px, pw in zip(x_pl, w.placements):
+        if _shards(pw, 0):
+            out.append(Partial())
+        elif _shards(pw, 1):
+            out.append(Shard(ndim - 1))
+        else:
+            out.append(px)
+    return out
+
+
+def col_linear(x, ws, dot):
+    """``dot(x, w)`` for a ``(d_in, d_out)`` weight ``w`` (or for each of a
+    tuple of weights laid out alike, with ``x`` moved once), the
+    column-parallel product, ``dot`` the local product
+    (:func:`~repro_torch.models.layers.linear` or ``dot_f32``).
+
+    Where :func:`rows_move` says so (decode under the serve rules), the
+    weight stays on its shards: ``x`` is gathered over the mesh axes that
+    split ``d_out`` (its rows over 'data'), each rank takes the product with
+    its own shard, and the output's ``d_out`` stays split as the weight's
+    is (over ``('model', 'data')``).  Otherwise the weight is gathered
+    (:func:`col`).  Plain tensors: ``dot(x, w)``."""
+    many = isinstance(ws, tuple)
+    ws = ws if many else (ws,)
+    w = ws[0]
+    x_pl = None
+    if is_dtensor(w) and not splits_any(w, 0):
+        x_pl = rows_move(x, w, 0, x.dim() - 1) if is_dtensor(x) else None
+    if x_pl is None:
+        outs = tuple(dot(x, col(wi)) for wi in ws)
+    else:
+        x = x.redistribute(x.device_mesh, x_pl)
+        outs = tuple(shard_map(dot, (x, wi), (x_pl, list(wi.placements)),
+                               _product_out(x_pl, wi, x.dim())) for wi in ws)
+    return outs if many else outs[0]
+
+
+def row_linear(h, w, dot):
+    """``dot(h, w)`` for an ``(d_in, d_out)`` weight ``w``, the row-parallel
+    product, ``dot`` the local product.
+
+    Where :func:`rows_move` says so, the weight stays on its shards: ``h``
+    is laid out as ``w``'s ``d_in`` (over ``('model', 'data')`` under the
+    serve rules: nothing moves when ``h`` comes from :func:`col_linear`),
+    each rank takes its partial product, and the partial sums are reduced
+    to the rows-over-'data' layout (a reduce-scatter onto the rows, then an
+    all-reduce over the rest: the all-reduce of activations).  Otherwise the
+    weight is gathered (:func:`row`).  Plain tensors: ``dot(h, w)``."""
+    h_pl = None
+    if is_dtensor(w) and is_dtensor(h) and not splits_any(w, 1):
+        h_pl = rows_move(h, w, 0)
+    if h_pl is None:
+        return dot(h, row(w))
+    out = shard_map(dot, (h, w), (h_pl, list(w.placements)), _product_out(h_pl, w, h.dim()))
+    return reduce_rows(out)
+
+
+def reduce_rows(y):
+    """The DTensor ``y`` (partial sums, rows whole or split) in the
+    rows-over-the-batch-axes layout, everything else whole: partial sums
+    are first reduce-scattered onto the rows, then all-reduced."""
+    mesh = y.device_mesh
+    final = placements(y.shape, ("batch",) + (None,) * (y.dim() - 1))
+    mid = [f if isinstance(p, (Partial, Replicate)) and isinstance(f, Shard) else p
+           for p, f in zip(y.placements, final)]
+    return y.redistribute(mesh, mid).redistribute(mesh, final)
+
+
+def splits_any(t, dim: int) -> bool:
+    """Whether the DTensor ``t`` splits its dim ``dim`` over a mesh dim of
+    more than one rank."""
+    mesh = t.device_mesh
+    return any(_shards(p, dim) and mesh.size(d) > 1 for d, p in enumerate(t.placements))
 
 
 def whole(w):

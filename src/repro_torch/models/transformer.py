@@ -56,7 +56,7 @@ from .layers import (
 from ..runtime.axes import get_activation_sharding, hint
 from .moe import init_moe_params, moe_ffn
 from .params import Params, map_named
-from .spmd import (col, is_dtensor, local_index, place, placements, row, shard_map, splits,
+from .spmd import (col, col_linear, is_dtensor, local_index, place, placements, row, shard_map, splits,
                    zeros)
 
 __all__ = [
@@ -886,7 +886,7 @@ def forward_decode(params, cfg, cache: dict, batch: dict, pos: int):
             h, _, _ = attn_block_decode(blk["attn"], cfg, h, cache["k"][i], cache["v"][i], pos)
             h = pin(_ffn(blk["ffn"], cfg, h, ffn, cap))
     h = rms_norm(h[:, 0, :], params["final_norm"], cfg.norm_eps)
-    return dot_f32(h, col(lm_head(params, cfg))), cache
+    return col_linear(h, lm_head(params, cfg), dot_f32), cache
 
 
 def lm_head(params, cfg) -> torch.Tensor:

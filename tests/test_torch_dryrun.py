@@ -14,6 +14,13 @@ cells end to end, and checks that the counters count one rank's shards:
 the FLOPs of a product of DTensors on a 16x16 mesh are the local shards'
 (FlopCounterMode over DTensors would report the global product), and a
 gather is priced by the ring model.
+
+The serve decode cells are held against the reference's own dry-run, run
+in a second child process (``python tests/test_torch_dryrun.py
+--reference``: it sets 512 placeholder devices before JAX starts), beside
+the first: per device, the port moves at most twice the reference's
+collective bytes, none of them parameter bytes, and its roofline is
+dominated by memory, as the reference's is.
 """
 import json
 import math
@@ -32,6 +39,16 @@ CELLS = [("qwen3-moe-30b-a3b", "train_4k", False), ("qwen3-moe-30b-a3b", "train_
          ("jamba-1.5-large-398b", "decode_32k", False), ("mamba2-2.7b", "long_500k", False)]
 RUN = [("mamba2-2.7b", "long_500k", False), ("qwen3-moe-30b-a3b", "decode_32k", False),
        ("granite-3-8b", "prefill_32k", False)]
+# Serve decode cells held against the reference's dry-run: dense, MoE on
+# both meshes, hybrid, ssm at 32k and 500k.
+DECODE = [("granite-3-8b", "decode_32k", False), ("qwen3-32b", "decode_32k", False),
+          ("qwen3-moe-30b-a3b", "decode_32k", False), ("qwen3-moe-30b-a3b", "decode_32k", True),
+          ("jamba-1.5-large-398b", "decode_32k", False), ("mamba2-2.7b", "decode_32k", False),
+          ("mamba2-2.7b", "long_500k", False)]
+MOE = ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b")
+# granite-3-8b prefill_32k's collective bytes per device before the decode
+# products kept the weights in place (weights gathered at every use)
+GRANITE_PREFILL_BYTES = 103_130_726_400.0
 
 
 def _child() -> None:
@@ -57,7 +74,7 @@ def _child() -> None:
         kind = SHAPES[shape].kind
         _, args, _ = builders.get(kind, dryrun.build_decode)(get_config(arch), SHAPES[shape], mesh)
         out["arg_bytes"][f"{arch}/{shape}/{mp}"] = dryrun.local_bytes(args)
-    for arch, shape, mp in RUN:
+    for arch, shape, mp in dict.fromkeys(RUN + DECODE):
         rec = dryrun.run_cell(arch, shape, mp, out_dir=None, verbose=False)
         out["runs"][f"{arch}/{shape}/{mp}"] = {k: rec.get(k) for k in (
             "status", "error", "memory", "cost_model", "roofline", "chips", "mode")}
@@ -75,16 +92,78 @@ def _child() -> None:
         x.redistribute(mesh, [Replicate(), Replicate()])
     out["counters"] = {"mm": c.flops, "partial_mm": p.flops, "gather": g.collectives.op_bytes,
                        "gather_counts": g.collectives.op_counts}
+
+    # Parameter bytes: a wide weight gathered over both axes (two gathers, the
+    # second of the first's output), a copy of one gathered, and an
+    # activation gathered (not a parameter).
+    import torch.distributed._functional_collectives as funcol
+
+    wide = distribute_tensor(torch.empty(2048, 8192, device="meta"), mesh, [Shard(1), Shard(1)])
+    params = [wide.to_local()]
+    with dryrun.Counters(params=params) as whole:
+        wide.redistribute(mesh, [Replicate(), Replicate()])
+    with dryrun.Counters(params=params) as copied:
+        funcol.wait_tensor(funcol.all_gather_tensor(wide.to_local().t().contiguous(), 0,
+                                                    (mesh, 0)))
+    with dryrun.Counters(params=params) as rows:
+        x.redistribute(mesh, [Replicate(), Replicate()])
+    out["param_bytes"] = {name: [c.param_gather_bytes, c.collectives.per_chip_bytes,
+                                 c.collectives.op_counts]
+                          for name, c in (("whole", whole), ("copied", copied), ("rows", rows))}
     print(json.dumps(out))
 
 
+def _reference_child() -> None:
+    """The reference's dry-run of the DECODE cells, printed as one JSON line:
+    each cell's status, collective bytes and FLOPs per device, and dominant
+    roofline term."""
+    from repro.launch import dryrun  # sets 512 placeholder devices before JAX starts
+
+    out = {}
+    for arch, shape, mp in DECODE:
+        rec = dryrun.run_cell(arch, shape, mp, out_dir=None, verbose=False)
+        out[f"{arch}/{shape}/{mp}"] = {
+            "status": rec["status"], "error": rec.get("error"),
+            **{k: rec.get("cost_model", {}).get(k) for k in ("collective_bytes_per_chip",
+                                                             "flops_per_chip")},
+            "dominant": rec.get("roofline", {}).get("dominant")}
+    print(json.dumps(out))
+
+
+def _start(flag: str) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, __file__, flag], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def _result(proc: subprocess.Popen) -> dict:
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, stderr[-4000:]
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
 @pytest.fixture(scope="module")
-def child():
-    proc = subprocess.run([sys.executable, __file__, "--child"], cwd=ROOT, capture_output=True,
-                          text=True, timeout=600,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+def children():
+    """The port's child and the reference's, run side by side."""
+    procs = [_start("--child"), _start("--reference")]
+    try:
+        return [_result(p) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+
+
+@pytest.fixture(scope="module")
+def child(children):
+    return children[0]
+
+
+@pytest.fixture(scope="module")
+def reference(children):
+    return children[1]
 
 
 def _reference_arg_bytes(arch, shape_name, multi_pod) -> int:
@@ -187,6 +266,18 @@ def test_meshes(child):
     assert "need 1024 ranks" in child["too_small"]
 
 
+def test_counters_count_parameter_gathers(child):
+    """A gather whose input is parameter storage counts as parameter bytes,
+    also when it gathers the output of an earlier gather of it or a
+    ``.contiguous()`` copy of it; an activation's gather does not."""
+    pb = child["param_bytes"]
+    local = 2048 * 8192 * 4 / 256
+    assert pb["whole"][2] == {"all-gather": 2}
+    assert pb["whole"][0] == pb["whole"][1] == local * 15 + local * 16 * 15
+    assert pb["copied"][0] == pb["copied"][1] == local * 16 * 15 / 16
+    assert pb["rows"][0] == 0 and pb["rows"][1] > 0
+
+
 def test_counters_count_local_shards(child):
     c = child["counters"]
     assert c["mm"] == 2 * (4096 // 16) * 2048 * (8192 // 16)  # not 2 * 4096 * 2048 * 8192
@@ -196,5 +287,35 @@ def test_counters_count_local_shards(child):
     assert c["gather_counts"] == {"all-gather": 1}
 
 
+@pytest.mark.parametrize("arch,shape,multi_pod", DECODE)
+def test_decode_cell_leaves_the_weights_in_place(child, reference, arch, shape, multi_pod):
+    """Against the reference's dry-run of the same cell: collective bytes per
+    device at most twice the reference's, no parameter bytes among them
+    (the serve rules' weights are never gathered at decode), the roofline
+    dominated by memory as the reference's is, and for MoE the expert FLOPs
+    of one rank's F slice (within 1.25x of the reference's, not 4-9x)."""
+    key = f"{arch}/{shape}/{multi_pod}"
+    rec, ref = child["runs"][key], reference[key]
+    assert rec["status"] == "ok", rec["error"]
+    assert ref["status"] == "ok", ref["error"]
+    cost = rec["cost_model"]
+    assert cost["collective_bytes_per_chip"] <= 2 * ref["collective_bytes_per_chip"], (cost, ref)
+    assert cost["param_gather_bytes"] == 0, cost
+    assert ref["dominant"] == "memory" and rec["roofline"]["dominant"] == "memory", (rec, ref)
+    if arch in MOE:
+        assert cost["flops_per_chip"] <= 1.25 * ref["flops_per_chip"], (cost, ref)
+
+
+def test_prefill_gathers_weights_no_more_than_before(child):
+    """At prefill the rows are the larger thing to move, so the products still
+    gather the weights: granite-3-8b prefill_32k moves no more than it did
+    when every product gathered its weight (103.1 GB a device)."""
+    cost = child["runs"]["granite-3-8b/prefill_32k/False"]["cost_model"]
+    assert cost["collective_bytes_per_chip"] <= GRANITE_PREFILL_BYTES
+    assert cost["param_gather_bytes"] > 0
+
+
 if __name__ == "__main__" and sys.argv[1:] == ["--child"]:
     _child()
+elif __name__ == "__main__" and sys.argv[1:] == ["--reference"]:
+    _reference_child()

@@ -381,6 +381,30 @@ def _routed_slab(e, c, d, dev, seed):
     return torch.from_numpy(x).to(dev, torch.bfloat16), counts
 
 
+@pytest.mark.parametrize("dtype,e,c,d,f", [
+    (torch.bfloat16, 8, 16, 2048, 48),    # qwen3-moe decode on 16x16: 128 / 16 experts, F 768 / 16
+    (torch.float32, 8, 16, 2048, 48),
+    (torch.bfloat16, 8, 200, 2048, 48),   # the same slice at a capacity above 64
+    (torch.bfloat16, 1, 24, 8192, 1536),  # jamba decode on 16x16: 16 / 16 experts, F 24,576 / 16
+    (torch.float32, 64, 8, 2048, 384),    # the four-card case: 128 / 2 experts, F 768 / 2, f32
+], ids=["qwen3-moe-bf16", "qwen3-moe-f32", "qwen3-moe-c200", "jamba-bf16", "cards-f32"])
+def test_moe_mlp_on_stationary_expert_slices_matches_twin(cuda_device, no_tf32, dtype, e, c, d, f):
+    """The local slices that the stationary experts hand the kernel (E / 'model'
+    experts, F / 'data' of each): F 48 is under one 64-wide tile of every
+    kernel (the tensor maps zero-fill past it, the stores are masked), F 1,536
+    is 24 of them.  A routed slab, with empty experts."""
+    x, _ = _routed_slab(e, c, d, cuda_device, seed=f)
+    x = x.to(dtype)
+    wg = _randn((e, d, f), dtype, cuda_device, 1, d ** -0.5)
+    wu = _randn((e, d, f), dtype, cuda_device, 2, d ** -0.5)
+    wd = _randn((e, f, d), dtype, cuda_device, 3, f ** -0.5)
+    before = launch_counts()["moe_mlp"]
+    out = moe_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_mlp"] == before + 1
+    _assert_kernel_close(out, moe_mlp_ref(x, wg, wu, wd))
+
+
 @pytest.mark.parametrize("e,c", [(16, 8), (16, 640), (12, 200), (24, 40)])
 def test_moe_mlp_routed_slab_matches_twin(cuda_device, e, c):
     """qwen3-moe's widths (D 2048, F 768) on a routed slab with empty experts:

@@ -34,6 +34,7 @@ TIMEOUT_S = 300
 TOL = 1e-5
 SERVE = [("qwen3-moe-30b-a3b", 0), ("qwen3-moe-30b-a3b", 5), ("granite-3-8b", 0),
          ("jamba-1.5-large-398b", 0), ("mamba2-2.7b", 0)]
+SERVE_EXPERT_F = [("qwen3-moe-30b-a3b", 0), ("qwen3-moe-30b-a3b", 5)]
 TRAIN = [("qwen3-moe-30b-a3b", 0), ("qwen3-moe-30b-a3b", 5), ("granite-3-8b", 0)]
 SERVE_SIZES = (4, 16, 2)  # batch, prompt, greedy tokens
 TRAIN_SIZES = (4, 16, 2)  # batch, sequence, microbatches
@@ -52,14 +53,37 @@ def config(arch, reduced=True, changes=()):
     return dataclasses.replace(cfg, **changes)
 
 
-def serve_case(mesh, cfg, device, sizes):
+def expert_f_over_data(specs):
+    """The serve specs with every routed expert leaf's F dim on 'data', as
+    the rules place a leaf whose 'model' shard is over 1e9 bytes (the
+    reduced configs' leaves are far under it): ``(E, D, F)`` gate and up,
+    ``(E, F, D)`` down."""
+    out = {}
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            out[name] = expert_f_over_data(spec) if name != "shared" else spec
+        elif name in ("w_gate", "w_up", "w_down") and len(spec) >= 4:  # stacked (.., E, ., .)
+            f = len(spec) - (2 if name == "w_down" else 1)
+            out[name] = tuple("data" if i == f else a for i, a in enumerate(spec))
+        else:
+            out[name] = spec
+    return out
+
+
+def serve_case(mesh, cfg, device, sizes, expert_f=False):
     """Prefill B prompts of S tokens, then greedy decode steps (the last
     through ``make_decode_step``), unsharded and with the weights placed by
-    the serve rules: whether the tokens agree, the largest logit and cache
-    differences, and each run's kernel launches."""
+    the serve rules (``expert_f``: with the experts' F dim over 'data', see
+    :func:`expert_f_over_data`): whether the tokens agree, the largest logit
+    and cache differences, each run's kernel launches, the placements of
+    the first expert leaf, and the collective bytes of the last decode step
+    (counted by the dry-run's ``Counters`` on this rank) with the part whose
+    input is parameter storage."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.dryrun import Counters
     from repro_torch.models import Model
-    from repro_torch.models.spmd import full
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.spmd import full, is_dtensor
     from repro_torch.runtime.serve import make_decode_step, make_prefill_step
     from repro_torch.runtime.sharding import distribute_params, make_sharding_rules, param_specs
 
@@ -78,19 +102,29 @@ def serve_case(mesh, cfg, device, sizes):
                 lg, cache = model.decode_step(p, cache, {"tokens": toks[-1][:, None]}, s + i)
                 logits.append(full(lg))
                 toks.append(torch.argmax(logits[-1], -1).to(toks[-1].dtype))
-            nxt, cache = decode(p, cache, toks[-1][:, None], s + gen - 1)
+            local = [x.to_local() if is_dtensor(x) else x for x in tree_leaves(p)]
+            with Counters(params=local) as counted:
+                nxt, cache = decode(p, cache, toks[-1][:, None], s + gen - 1)
             toks.append(full(nxt).reshape(-1))
         launches = {k: v for k, v in launch_counts().items() if v}
-        return torch.stack(toks, 1), logits, {k: full(v) for k, v in cache.items()}, launches
+        return (torch.stack(toks, 1), logits, {k: full(v) for k, v in cache.items()}, launches,
+                counted)
 
-    t0, l0, c0, n0 = run(params)
-    sharded = distribute_params(params, param_specs(params, make_sharding_rules(mesh, "serve")),
-                                mesh)
-    t1, l1, c1, n1 = run(sharded)
+    t0, l0, c0, n0, _ = run(params)
+    specs = param_specs(params, make_sharding_rules(mesh, "serve"))
+    if expert_f:
+        specs = expert_f_over_data(specs)
+    sharded = distribute_params(params, specs, mesh)
+    t1, l1, c1, n1, counted = run(sharded)
+    experts = [str(x.placements) for name, x in sharded.named_parameters()
+               if name.endswith("moe.w_gate")][:1]
     return {"tokens_equal": bool(torch.equal(t0, t1)),
             "logits_err": max(float((a - c).abs().max()) for a, c in zip(l0, l1)),
             "cache_err": max(float((c0[k] - c1[k]).abs().max()) for k in c0),
-            "cache_keys": sorted(c1), "launches_plain": n0, "launches": n1}
+            "cache_keys": sorted(c1), "launches_plain": n0, "launches": n1,
+            "expert_placements": experts,
+            "decode_collective_bytes": counted.collectives.per_chip_bytes,
+            "decode_param_bytes": counted.param_gather_bytes}
 
 
 def train_case(mesh, cfg, device, sizes):
@@ -173,9 +207,11 @@ def _worker(rank, port, backend, cases, out):
         for key, kind, arch, reduced, changes, sizes in cases:
             if kind == "hint":
                 res[key] = hint_case(mesh)
+            elif kind == "train":
+                res[key] = train_case(mesh, config(arch, reduced, changes), device, sizes)
             else:
-                case = serve_case if kind == "serve" else train_case
-                res[key] = case(mesh, config(arch, reduced, changes), device, sizes)
+                res[key] = serve_case(mesh, config(arch, reduced, changes), device, sizes,
+                                      expert_f=kind == "serve_expert_f")
         if backend == "nccl":
             res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     except Exception:
@@ -187,7 +223,8 @@ def _worker(rank, port, backend, cases, out):
 
 def run_ranks(cases, backend="gloo", timeout=TIMEOUT_S):
     """``cases`` (``(key, kind, arch, reduced, changes, sizes)``, kind
-    ``serve``, ``train`` or ``hint``) on a 2x2 mesh of four spawned ranks in
+    ``serve``, ``serve_expert_f`` (the experts' F dim over 'data'), ``train``
+    or ``hint``) on a 2x2 mesh of four spawned ranks in
     a ``backend`` group (``nccl``: rank r on ``cuda:r``).  Returns
     ``({rank: results}, hung ranks)``; ranks still running after
     ``timeout`` seconds are killed."""
@@ -217,6 +254,8 @@ def run_ranks(cases, backend="gloo", timeout=TIMEOUT_S):
 CASES = ([("hint", "hint", None, True, {}, None)]
          + [(f"serve/{arch}/{e}", "serve", arch, True, {"n_experts": e}, SERVE_SIZES)
             for arch, e in SERVE]
+         + [(f"serve_expert_f/{arch}/{e}", "serve_expert_f", arch, True, {"n_experts": e},
+             SERVE_SIZES) for arch, e in SERVE_EXPERT_F]
          + [(f"train/{arch}/{e}", "train", arch, True, {"n_experts": e}, TRAIN_SIZES)
             for arch, e in TRAIN])
 
@@ -248,6 +287,22 @@ def test_sharded_prefill_and_decode_match_unsharded(ranks, arch, n_experts):
         assert r["tokens_equal"], r
         assert r["cache_err"] <= TOL and r["logits_err"] <= TOL, r
         assert r["launches"] == r["launches_plain"], r
+        # the decode step leaves every weight where the serve rules put it
+        assert r["decode_param_bytes"] == 0 and r["decode_collective_bytes"] > 0, r
+
+
+@pytest.mark.parametrize("arch,n_experts", SERVE_EXPERT_F)
+def test_stationary_experts_match_unsharded(ranks, arch, n_experts):
+    """The experts' F dim over 'data' (the rules' placement of a large
+    expert leaf): the decode step moves the tokens, not the expert slices,
+    and agrees with the unsharded port."""
+    for res in ranks.values():
+        r = res[f"serve_expert_f/{arch}/{n_experts}"]
+        assert "Shard(dim=2)" in r["expert_placements"][0], r  # (E, D, F): F split
+        assert r["tokens_equal"], r
+        assert r["cache_err"] <= TOL and r["logits_err"] <= TOL, r
+        assert r["launches"] == r["launches_plain"], r
+        assert r["decode_param_bytes"] == 0 and r["decode_collective_bytes"] > 0, r
 
 
 @pytest.mark.parametrize("arch,n_experts", TRAIN)
