@@ -134,14 +134,16 @@ kernels are reached through ``local_map`` on local shards: the same 32
 tokens, the prefill logits within E2E_TOL, the same launches; and one train
 step at the ``training`` cut in float32 compute, unsharded and under the
 train rules: loss and gradients within E2E_TOL, no launch.  ``dryrun``:
-``python -m repro_torch.launch.dryrun`` for six production cells (qwen3-moe
+``python -m repro_torch.launch.dryrun`` for eight production cells (qwen3-moe
 train_4k and decode_32k on 16x16 and 2x16x16, jamba decode_32k, mamba2
-long_500k), each in a process of its own started before ``train_checks``
-and running beside them on the host's cores: every cell ``ok``, one line
-each with the modeled per-device GB, roofline terms and ``mfu``, its
-collective bytes and the part of them whose input is parameter storage,
-which must be 0 in every decode cell (the serve rules' weights stay where
-they are put; decode moves activations); and the
+long_500k, mamba2 and jamba prefill_32k), each in a process of its own
+started before ``train_checks`` and running beside them on the host's
+cores: every cell ``ok``, one line each with the modeled per-device GB,
+roofline terms and ``mfu``, its collective bytes and the part of them whose
+input is parameter storage, which must be 0 in every decode cell (the serve
+rules' weights stay where they are put; decode moves activations), and the
+two prefill cells at most the reference's dry-run's collective bytes
+(``DRYRUN_REFERENCE_BYTES``: the Mamba mixer moves its projection once); and the
 dry-run's predictions on a 1x1 mesh for the two ``sharded`` cuts beside the
 card's own peak memory and wall time there.
 
@@ -169,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -1756,7 +1759,14 @@ def phase_examples():
 DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", False), ("qwen3-moe-30b-a3b", "train_4k", True),
                 ("qwen3-moe-30b-a3b", "decode_32k", False),
                 ("qwen3-moe-30b-a3b", "decode_32k", True),
-                ("jamba-1.5-large-398b", "decode_32k", False), ("mamba2-2.7b", "long_500k", False))
+                ("jamba-1.5-large-398b", "decode_32k", False), ("mamba2-2.7b", "long_500k", False),
+                ("mamba2-2.7b", "prefill_32k", False),
+                ("jamba-1.5-large-398b", "prefill_32k", False))
+# Collective bytes per device of the reference's own dry-run of the prefill
+# cells (``python -m repro.launch.dryrun`` with 512 placeholder devices, the
+# 16x16 mesh), copied here: the port's may not exceed them.
+DRYRUN_REFERENCE_BYTES = {"mamba2-2.7b__prefill_32k__16x16": 135_117_362_040,
+                          "jamba-1.5-large-398b__prefill_32k__16x16": 965_091_520_212}
 DRYRUN_TIMEOUT_S = 600
 SERVE_PROFILE = {"batch": ("data",), "model": ("model",)}
 # The sharded train step: training's cut in float32 compute.  Two bf16 runs
@@ -2074,8 +2084,9 @@ def phase_dryrun(dry: DryRun, sharded):
     Then the same builders' predictions on a 1x1 mesh for
     ``phase_sharded``'s two cuts: the per-device bytes and roofline step
     time beside the card's own peak memory and wall time from that phase.
-    Every cell must be ``ok``, and every decode cell must gather no
-    parameter bytes."""
+    Every cell must be ``ok``, every decode cell must gather no parameter
+    bytes, and each cell of DRYRUN_REFERENCE_BYTES must move no more
+    collective bytes than the reference's dry-run of it."""
     rc, out, err = dry.result("1x1")
     if rc != 0:
         raise AssertionError(f"--dryrun-1x1 failed: {err[-4000:]}")
@@ -2094,6 +2105,9 @@ def phase_dryrun(dry: DryRun, sharded):
         _emit({"phase": "dryrun_cell", "modeled": "H100 data-sheet constants", **rec})
         if full["kind"] == "decode" and cost["param_gather_bytes"] != 0:
             raise AssertionError(f"dry-run {name} gathers parameters at decode: {rec}")
+        if cost["collective_bytes_per_chip"] > DRYRUN_REFERENCE_BYTES.get(name, math.inf):
+            raise AssertionError(f"dry-run {name} moves more than the reference's "
+                                 f"{DRYRUN_REFERENCE_BYTES[name]} B: {rec}")
     card = {"serve": {"peak_bytes": sharded["serve"]["warm_prefill_peak_bytes"],
                       "wall_ms": sharded["serve"]["warm_prefill_ms"]},
             "train": {"peak_bytes": sharded["train"]["step_peak_bytes"],

@@ -37,14 +37,38 @@ from . import ep_spmv as _spmv
 
 __all__ = [
     "BucketSpec",
-    "PaddedOperands",
     "ep_spmv",
     "make_bucketed_spmv_fn",
     "make_ep_spmv_fn",
+    "moe_mlp",
     "pad_plan_operands",
+    "resolve_plan",
     "spmv_hbm_traffic_model",
-    "stack_combine_tables",
 ]
+
+
+def __getattr__(name):
+    """``moe_mlp``, the expert-FFN kernel's wrapper (``kernels/moe_mlp.py``),
+    loaded on first use: ``repro_torch.kernels`` imports this module before
+    that one."""
+    if name == "moe_mlp":
+        import importlib
+
+        return importlib.import_module(f"{__package__}.moe_mlp").moe_mlp
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def resolve_plan(plan, timeout: float | None = None) -> PackPlan:
+    """Deprecated alias of :func:`repro_torch.runtime.request.resolve_plan`:
+    unwrapping a plan service's handles is the request layer's work; this
+    module takes host-side ``PackPlan``s only."""
+    import warnings
+
+    warnings.warn("repro_torch.kernels.resolve_plan is deprecated; use "
+                  "repro_torch.runtime.request.resolve_plan", DeprecationWarning, stacklevel=2)
+    from ..runtime.request import resolve_plan as _resolve  # lazy: layering
+
+    return _resolve(plan, timeout)
 
 
 # ---------------------------------------------------------------------------

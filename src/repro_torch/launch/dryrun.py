@@ -208,8 +208,8 @@ def build_decode(cfg: ArchConfig, shape: ShapeConfig, mesh):
 
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided", "detach",
              "lift_fresh", "alias"}
-_COPIES = {"clone", "_to_copy", "copy_", "constant_pad_nd", "cat", "stack", "wait_tensor",
-           "_wrap_tensor_autograd"}  # the last two: a collective's output, handed on
+_COPIES = {"clone", "_to_copy", "copy_", "constant_pad_nd", "cat", "stack", "index_select",
+           "wait_tensor", "_wrap_tensor_autograd"}  # the last two: a collective's output, handed on
 _COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
                 "all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
                 "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
@@ -298,12 +298,13 @@ class Counters(TorchDispatchMode):
 
     def _mark_copy(self, func, args, kwargs, out) -> None:
         """Follow a copy of parameter storage (``.contiguous()``, a cast, a
-        pad, a concatenation of such copies) to its source, so that a copy
-        cannot hide a gather of it."""
+        pad, a concatenation of such copies, a selection of its rows) to its
+        source, so that a copy cannot hide a gather of it."""
         name = func._overloadpacket.__name__
         if name not in _COPIES:
             return
-        srcs = [args[1]] if name == "copy_" else _tensors((args, kwargs))
+        srcs = ([args[1]] if name == "copy_" else [args[0]] if name == "index_select"
+                else _tensors((args, kwargs)))
         if srcs and all(self._from_params(t) for t in srcs):
             self._mark(args[0] if name == "copy_" else out)
 

@@ -24,8 +24,9 @@ import torch.nn.functional as F
 
 from .layers import init_linear, linear, normal, rms_norm
 from ..runtime.axes import get_activation_sharding, hint
-from .spmd import (col_linear, is_dtensor, local_index, placements, replicated_like,
-                   row_linear, rows_move, shard_map, to_layout_of, weight_layout)
+from .spmd import (col, col_linear, is_dtensor, local_index, model_ways,
+                   placements, replicated_like, row_linear, rows_move, shard_map, split_parts,
+                   to_layout_of, weight_layout)
 
 __all__ = [
     "ssd_chunked",
@@ -293,18 +294,37 @@ def mamba_mixer(
     With ``return_state``, also returns (conv_state, ssm_state) for decode
     handoff: the last W-1 pre-conv inputs (zero-padded in front when S < W-1)
     and the float32 SSD state.
+
+    On a mesh whose 'model' axis has more than one rank, ``in_proj``'s
+    output width is split over 'model' in even shards whose edges are not
+    the z / xBC / dt boundaries, and a slice of it would gather all of it.
+    So there its output goes, by one all-to-all, to z, xBC and dt each over
+    'model' on its own width (``spmd.split_parts``): xBC as the conv's
+    weights and the cache's conv state lie, so neither moves; the conv's
+    output goes, by one more, to x, B and C each on its own width.
+    Elsewhere, one product and slices of it.
     """
     b, s, d = x.shape
     d_inner = ssm.expand * d
     h = d_inner // ssm.head_dim
     g, n = ssm.n_groups, ssm.d_state
-    proj = col_linear(x, params["in_proj"], linear)  # float32 sums, rounded to x's type
-    z, xbc_raw, dt_raw = _split_proj(proj, d_inner, 2 * g * n, h)
-    xbc = _conv_by_channels(xbc_raw, params["conv_w"], params["conv_b"])
-    xbc = F.silu(xbc.float()).to(x.dtype)
-    xs = xbc[..., :d_inner].reshape(b, s, h, ssm.head_dim)
-    bm = xbc[..., d_inner : d_inner + g * n].reshape(b, s, g, n)
-    cm = xbc[..., d_inner + g * n :].reshape(b, s, g, n)
+    conv = lambda raw: F.silu(_conv_by_channels(raw, params["conv_w"], params["conv_b"])
+                              .float()).to(x.dtype)
+    if model_ways(x) > 1:  # z, xBC and dt each over 'model' on its own width
+        # the weight gathered, as col_linear gathers it at any real length: moving the
+        # rows would leave a wide weight's output split over 'data' as well
+        z, xbc_raw, dt_raw = split_parts(linear(x, col(params["in_proj"])),
+                                         (d_inner, d_inner + 2 * g * n, h))
+        xs, bm, cm = split_parts(conv(xbc_raw), (d_inner, g * n, g * n))
+    else:
+        proj = col_linear(x, params["in_proj"], linear)  # float32 sums, rounded to x's type
+        z, xbc_raw, dt_raw = _split_proj(proj, d_inner, 2 * g * n, h)
+        xbc = conv(xbc_raw)
+        xs, bm = xbc[..., :d_inner], xbc[..., d_inner : d_inner + g * n]
+        cm = xbc[..., d_inner + g * n :]
+    xs = xs.reshape(b, s, h, ssm.head_dim)
+    bm = bm.reshape(b, s, g, n)
+    cm = cm.reshape(b, s, g, n)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y, final_state = _by_heads(

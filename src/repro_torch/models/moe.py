@@ -44,8 +44,8 @@ import torch.nn.functional as F
 from ..kernels import moe_mlp
 from ..runtime.axes import get_activation_sharding
 from .layers import dot_f32, init_linear, linear, normal, swiglu
-from .spmd import (all_reduce, col_linear, grad_layout, is_dtensor, local_index, placements,
-                   reduce_rows, row_linear, shard_map, whole)
+from .spmd import (col_linear, grad_layout, is_dtensor, local_index, placements, reduce_rows,
+                   row_linear, shard_map, slab_sum, whole)
 
 __all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "recorded_routing",
            "route", "router_load_balancing_loss"]
@@ -187,14 +187,15 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
 
 
 def _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts: int, capacity: int,
-                    n_shards: int, e0: Optional[int], experts, sum_slab=None):
+                    n_shards: int, e0: Optional[int], experts, sum_slab=None, own=None):
     """The routed experts' combined output ``(T, D)`` in float32 of tokens
     ``x (T, D)``: dispatch, the expert FFN ``experts`` over the slabs, each
     kept pair's output gathered back and weighted.  ``e0`` set: the weights
     hold experts ``e0 ..`` only, and pairs routed elsewhere add nothing.
     ``sum_slab`` set: the weights hold a slice of the F dim, and
     ``sum_slab`` sums the partial output slabs over the ranks holding the
-    other slices."""
+    other slices.  ``own`` set: ``weights`` are those of tokens ``own ..
+    own + len(weights)`` only, whose outputs alone are combined."""
     t, top_k = ids.shape
     d = x.shape[1]
     window = None if e0 is None else (e0, w_gate.shape[0])
@@ -207,8 +208,12 @@ def _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts: int, capac
     # masked out), not one shared row: in the backward pass the gather's
     # index-add would otherwise sum every dropped pair into one row, in turn.
     n_rows = slab.shape[0] * capacity
-    spread = torch.arange(t * top_k, device=x.device) % n_rows
-    y_pairs = out_slab.view(n_rows, d)[torch.where(keep, rows, spread)]
+    pairs = torch.arange(t * top_k, device=x.device)
+    if own is not None:
+        t = weights.shape[0]
+        pairs = pairs[own * top_k : (own + t) * top_k]
+        rows, keep = rows[pairs], keep[pairs]
+    y_pairs = out_slab.view(n_rows, d)[torch.where(keep, rows, pairs % n_rows)]
     y_pairs = y_pairs.float().masked_fill(~keep[:, None], 0.0)  # (T * k, D)
     return (y_pairs * weights.reshape(t * top_k, 1)).reshape(t, top_k, d).sum(dim=1)
 
@@ -226,13 +231,20 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
 
     Where the rules split the experts' F dim as well (over 'data', for a
     large expert leaf: the reference's compute-stationary experts), the
-    weights stay on their shards when the tokens are the fewer bytes to
-    move (decode): the tokens are gathered over the mesh axes that split F,
-    each rank runs the expert FFN on its ``(E/tp, D, F/data)`` slice, and
-    the partial output slabs are summed over those axes in float32 before
-    the combine.  Otherwise (prefill, and a step that needs the weights'
-    gradients) the F dim is gathered, the weights' layout in every other
-    case."""
+    weights stay on their shards when that moves fewer bytes than
+    gathering them (decode, and a train step with few tokens a rank): the
+    tokens are gathered over the mesh axes that split F, each rank runs the
+    expert FFN on its ``(E/tp, D, F/data)`` slice, the partial output slabs
+    are summed over those axes in float32
+    (:func:`~repro_torch.models.spmd.slab_sum`), and each rank combines its
+    own tokens' pairs.  The bytes compared are the tokens' gather and the
+    slab sum against the slices' gather, and in a step that needs
+    gradients also their backward passes: the slabs' gradient summed and
+    the gathered tokens' gradient summed over the F ranks and 'model',
+    against the slices' gradient reduce-scattered.  Where the slices are
+    the fewer bytes (prefill, a train step over many tokens), and in a step
+    that needs gradients whose tokens do not split over the F ranks, the F
+    dim is gathered, the weights' layout in every other case."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     prof = get_activation_sharding()
@@ -241,38 +253,60 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
     tp_size = prof.axis_size((tp,)) if tp else 1
     split = tp_size > 1 and n_experts % tp_size == 0
     ws = (params["w_gate"], params["w_up"], params["w_down"])
-    x_pl = placements(x.shape, ("batch", None))
+    rows_pl = placements(x.shape, ("batch", None))  # the combine's: this rank's tokens
     f_dims = [d for d, p in enumerate(ws[0].placements)
               if isinstance(p, Shard) and p.dim == 2 and mesh.size(d) > 1]
-    if f_dims:
-        x_ways = math.prod(mesh.size(d) for d in f_dims if isinstance(x_pl[d], Shard))
-        x_cost = x.to_local().numel() * x.element_size() * (x_ways - 1)
-        w_cost = (sum(w.to_local().numel() * w.element_size() for w in ws)
-                  * (math.prod(mesh.size(d) for d in f_dims) - 1))
-        if x_cost >= w_cost or (torch.is_grad_enabled() and ws[0].requires_grad):
+    if f_dims:  # bytes a rank sends either way (ring model), from shapes alone
+        grad = torch.is_grad_enabled() and ws[0].requires_grad
+        n_f = math.prod(mesh.size(d) for d in f_dims)
+        x_ways = math.prod(mesh.size(d) for d in f_dims if isinstance(rows_pl[d], Shard))
+        x_bytes = x.to_local().numel() * x.element_size()
+        rows_ways = math.prod(n for n, pl in zip(mesh.shape, rows_pl) if isinstance(pl, Shard))
+        slab = ((n_experts // tp_size if split else n_experts) * (capacity * x_ways // rows_ways)
+                * x.shape[1] * 4)
+        slab_sum_bytes = 2 * slab * (n_f - 1) / n_f
+        keep = x_bytes * (x_ways - 1) + slab_sum_bytes  # gather the tokens, sum the slabs
+        gather = sum(w.to_local().numel() * w.element_size() for w in ws) * (n_f - 1)
+        if grad:  # and back: the slabs' gradient summed; the gathered tokens' gradient summed
+            # over the F ranks and over 'model'; the gathered slices' gradient reduce-scattered
+            keep += slab_sum_bytes + 2 * x_bytes * (x_ways * (n_f - 1) / n_f
+                                                    + (x_ways - 1) * (tp_size - 1) / tp_size)
+            gather *= 2
+        # a gradient needs the combine split over the F ranks (see slab_sum)
+        if keep >= gather or (grad and x_ways < n_f):
             f_dims = []  # the F dim is gathered
-    if f_dims:  # the tokens go to the experts' F slices
-        x_pl = [Replicate() if d in f_dims else p for d, p in enumerate(x_pl)]
+    # the dispatch's tokens: gathered over the experts' F slices
+    x_pl = [Replicate() if d in f_dims else p for d, p in enumerate(rows_pl)]
     ways = math.prod(n for n, pl in zip(mesh.shape, x_pl) if not isinstance(pl, Replicate))
     if ns % ways:
         ns, x_pl = 1, placements(x.shape, (None, None))
         ways = 1
+        if not f_dims:
+            rows_pl = x_pl
+    own_dims = [d for d, (p, q) in enumerate(zip(rows_pl, x_pl))
+                if isinstance(p, Shard) and not isinstance(q, Shard) and mesh.size(d) > 1]
     if f_dims:
         w_pls = [list(w.placements) for w in ws]
     else:
         w_pls = [placements(ws[0].shape, ("model" if split else None, None, None))] * 3
     names = mesh.mesh_dim_names
-    y_pl = [Partial() if split and names[d] == tp else p for d, p in enumerate(x_pl)]
-    sum_slab = (lambda t: all_reduce(t.float(), f_dims)) if f_dims else None
+    y_pl = [Partial() if split and names[d] == tp else p for d, p in enumerate(rows_pl)]
+    sum_slab = (lambda t: slab_sum(t.float(), f_dims, mesh)) if f_dims else None
 
     def local(x, ids, weights, w_gate, w_up, w_down):
         if expert_perm is not None:
             ids = expert_perm.to(ids.device)[ids]
         e0 = local_index(tp, True) * w_gate.shape[0] if split else None
+        own = None
+        if own_dims:  # this rank's block of the tokens, in DTensor's chunk order
+            own = 0
+            for d in own_dims:
+                own = own * mesh.size(d) + mesh.get_local_rank(d)
+            own *= weights.shape[0]
         return _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts,
-                               capacity // ways, ns // ways, e0, experts, sum_slab)
+                               capacity // ways, ns // ways, e0, experts, sum_slab, own)
 
-    y = shard_map(local, (x, ids, weights, *ws), (x_pl, x_pl, x_pl, *w_pls), y_pl)
+    y = shard_map(local, (x, ids, weights, *ws), (x_pl, x_pl, rows_pl, *w_pls), y_pl)
     return reduce_rows(y)
 
 

@@ -16,15 +16,18 @@ function on the tensors as they are: the single-device path is unchanged.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from ..runtime.axes import get_activation_sharding, resolve, to_placements
 
 __all__ = ["all_reduce", "is_dtensor", "local_index", "place", "placements", "replicated_like",
-           "shard_map", "col", "col_linear", "full", "grad_layout", "reduce_rows", "row",
-           "row_linear", "rows_move", "splits", "splits_any", "to_layout_of", "weight_layout",
-           "whole", "zeros"]
+           "shard_map", "col", "col_linear", "full", "grad_layout", "model_ways",
+           "reduce_rows", "row", "row_linear", "rows_move", "slab_sum", "split_parts", "splits",
+           "splits_any", "to_layout_of", "weight_layout", "whole", "zeros"]
 
 
 def is_dtensor(x) -> bool:
@@ -73,13 +76,42 @@ def place(x, *logical):
 def all_reduce(t: torch.Tensor, dims, mesh=None) -> torch.Tensor:
     """The plain local tensor ``t`` summed over the mesh dims ``dims`` (of
     ``mesh``, by default the profile's), inside a :func:`shard_map` body.
-    Not differentiable."""
+    Not differentiable (:func:`slab_sum` is)."""
     import torch.distributed._functional_collectives as funcol
 
     mesh = mesh if mesh is not None else get_activation_sharding().mesh
     for d in dims:
         t = funcol.wait_tensor(funcol.all_reduce(t.contiguous(), "sum", (mesh, d)))
     return t
+
+
+class _SlabSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dims, mesh):
+        ctx.dims, ctx.mesh = dims, mesh
+        return all_reduce(t, dims, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.dims, ctx.mesh), None, None
+
+
+def slab_sum(t: torch.Tensor, dims, mesh=None) -> torch.Tensor:
+    """:func:`all_reduce`, differentiable: the ranks' partial ``t`` summed
+    over the mesh dims ``dims``, in the forward pass and in the backward
+    pass alike.
+
+    Each rank of ``dims`` reads its own part of the sum (the MoE combine
+    reads its own tokens' rows), so each gradient is only that rank's
+    part, and the gradient of each rank's term is their sum.  A
+    :func:`shard_map` input replicated over ``dims`` (the tokens, where
+    each rank of ``dims`` holds a slice of the weights) gets this rank's
+    share of its gradient, which the map sums over ``dims`` on the way out
+    (``_SumGrad``); an input split over ``dims`` (the router weights of
+    this rank's tokens) gets its whole gradient here.  Were every rank to
+    read the whole sum, each would hold the whole gradient and this sum
+    would count it once for each rank."""
+    return _SlabSum.apply(t, tuple(dims), mesh)
 
 
 class _SumGrad(torch.autograd.Function):
@@ -253,6 +285,74 @@ def col_linear(x, ws, dot):
         outs = tuple(shard_map(dot, (x, wi), (x_pl, list(wi.placements)),
                                _product_out(x_pl, wi, x.dim())) for wi in ws)
     return outs if many else outs[0]
+
+
+def model_ways(x) -> int:
+    """Ranks of the profile's 'model' axis when ``x`` is a DTensor, else 1."""
+    prof = get_activation_sharding()
+    if prof is None or not is_dtensor(x):
+        return 1
+    return prof.axis_size(prof.logical.get("model", ()))
+
+
+@functools.lru_cache(maxsize=256)
+def _parts_plan(widths: tuple, n: int, r: int, device: str):
+    """Rank ``r``'s all-to-all over ``n`` ranks from even column shards of
+    the concatenated parts ``widths`` to each part's own even shards: the
+    local columns to send, in destination order (``idx``), the send and
+    receive counts, and where each received column goes (``perm``)."""
+    c = sum(widths) // n
+    offs = np.cumsum((0,) + widths[:-1])
+
+    def need(j):  # the global columns rank j's parts hold, in part order
+        return np.concatenate([np.arange(o + j * w // n, o + (j + 1) * w // n)
+                               for o, w in zip(offs, widths)])
+
+    sends = [need(j) for j in range(n)]
+    sends = [s[(s >= r * c) & (s < (r + 1) * c)] - r * c for s in sends]
+    src = need(r) // c
+    perm = np.empty(len(src), dtype=np.int64)
+    perm[np.argsort(src, kind="stable")] = np.arange(len(src))
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (as_t(np.concatenate(sends)), [len(s) for s in sends],
+            np.bincount(src, minlength=n).tolist(), as_t(perm))
+
+
+def split_parts(t, widths):
+    """The DTensor ``t`` cut along its last dim into parts of ``widths``,
+    each laid out over 'model' on its own width (split where the width
+    divides the axis, else whole), its other dims as ``t`` has them.
+
+    ``t`` with its last dim split over 'model' (a column-parallel product's
+    output) and every part dividing the axis: one all-to-all over 'model'
+    moves each of this rank's columns to the rank whose part holds it,
+    where slicing the DTensor at columns off its shard edges would
+    all-gather all of ``t``; the backward pass is the inverse all-to-all.
+    Otherwise ``t`` is made whole over 'model' and each part sliced."""
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
+    prof = get_activation_sharding()
+    m = names.index(next(a for a in prof.logical.get("model", ()) if a in names))
+    n, last = mesh.size(m), t.dim() - 1
+    keep = [Replicate() if _shards(p, last) and d != m else p for d, p in enumerate(t.placements)]
+    part_pls = [keep[:m] + [Shard(last) if w % n == 0 else Replicate()] + keep[m + 1:]
+                for w in widths]
+    if not (_shards(t.placements[m], last) and all(w % n == 0 for w in widths)):
+        keep[m] = Replicate()
+        t = t.redistribute(mesh, keep)
+        offs = np.cumsum((0,) + tuple(widths[:-1]))
+        return tuple(t[..., o:o + w].redistribute(mesh, pl)
+                     for o, w, pl in zip(offs, widths, part_pls))
+    import torch.distributed._functional_collectives as funcol
+
+    def local(a):
+        idx, sends, recvs, perm = _parts_plan(tuple(widths), n, mesh.get_local_rank(m),
+                                              str(a.device))
+        buf = a.movedim(-1, 0).index_select(0, idx)
+        buf = funcol.all_to_all_single_autograd(buf, recvs, sends, (mesh, m))
+        return buf.index_select(0, perm).movedim(0, -1).split([w // n for w in widths], dim=-1)
+
+    return shard_map(local, (t,), (keep,), tuple(part_pls))
 
 
 def row_linear(h, w, dot):

@@ -11,6 +11,10 @@ package; these tests catch the two drifting apart.
 """
 import ast
 import dataclasses
+import importlib
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -162,3 +166,37 @@ def test_replica_worker_differs_only_by_package_name():
         assert old in ref, old
         ref = ref.replace(old, new)
     assert body == ref
+
+
+@pytest.mark.parametrize("name", ["launch", "kernels.ops"])
+def test_package_surface_equals_the_reference(name):
+    """``repro_torch.launch`` and ``repro_torch.kernels.ops`` export what the
+    reference's do, each name resolving to a callable."""
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    assert port.__all__ == ref.__all__
+    for attr in port.__all__:
+        assert callable(getattr(port, attr)), attr
+
+
+def test_launch_reexports_are_lazy():
+    """Importing ``repro_torch.launch`` loads no mesh module and starts no
+    process group; reading a re-export loads it and still starts none."""
+    code = ("import sys, torch.distributed as dist, repro_torch.launch as launch\n"
+            "before = 'repro_torch.launch.mesh' in sys.modules\n"
+            "fn = launch.make_production_mesh\n"
+            "print(before, 'repro_torch.launch.mesh' in sys.modules, dist.is_initialized(),\n"
+            "      fn.__module__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(SRC)}, check=True).stdout
+    assert out.split() == ["False", "True", "False", "repro_torch.launch.mesh"]
+
+
+def test_ops_moe_mlp_is_the_kernel_wrapper():
+    """``kernels.ops.moe_mlp`` is the wrapper that counts the kernel's
+    launches, not a copy of it."""
+    import repro_torch.kernels as kernels
+    from repro_torch.kernels import ops
+
+    assert ops.moe_mlp is kernels.moe_mlp
+    assert hasattr(ops.moe_mlp, "launches")

@@ -20,7 +20,13 @@ in a second child process (``python tests/test_torch_dryrun.py
 --reference``: it sets 512 placeholder devices before JAX starts), beside
 the first: per device, the port moves at most twice the reference's
 collective bytes, none of them parameter bytes, and its roofline is
-dominated by memory, as the reference's is.
+dominated by memory, as the reference's is.  The prefill cells with Mamba
+layers (mamba2-2.7b and jamba-1.5-large-398b ``prefill_32k``) are held
+against the reference's too, at most its collective bytes; their train
+cells and qwen2-moe-a2.7b's, run by two more children (``--train=0``,
+``--train=1``) beside the other two, against the bytes they moved before
+the mixer split its projection by parts and the experts' byte rule
+decided in training.
 """
 import json
 import math
@@ -49,6 +55,19 @@ MOE = ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b")
 # granite-3-8b prefill_32k's collective bytes per device before the decode
 # products kept the weights in place (weights gathered at every use)
 GRANITE_PREFILL_BYTES = 103_130_726_400.0
+# Prefill cells with Mamba layers, held against the reference's dry-run.
+PREFILL = [("mamba2-2.7b", "prefill_32k", False), ("jamba-1.5-large-398b", "prefill_32k", False)]
+# Train cells run by two more children, in two groups: (collective bytes,
+# parameter bytes) per device before the Mamba mixer moved its projection
+# by parts (each slice of the projection gathered all of it) and before the
+# experts' byte rule decided in training: the Mamba cells must move fewer,
+# qwen2-moe (F-split experts) no more.
+TRAIN = {("mamba2-2.7b", "train_4k", False): (1_197_459_737_782.5, 17_366_937_600.0),
+         ("qwen2-moe-a2.7b", "train_4k", False): (1_621_018_110_345.0, 753_575_854_080.0),
+         ("jamba-1.5-large-398b", "train_4k", False): (8_013_734_995_207.5, 1_489_954_391_040.0)}
+TRAIN_GROUPS = (list(TRAIN)[:2], list(TRAIN)[2:])
+# The same cells' parameter bytes at prefill before that change: no more now.
+PREFILL_PARAM_BYTES = {"mamba2-2.7b": 1_675_900_800.0, "jamba-1.5-large-398b": 135_162_402_570.0}
 
 
 def _child() -> None:
@@ -74,10 +93,8 @@ def _child() -> None:
         kind = SHAPES[shape].kind
         _, args, _ = builders.get(kind, dryrun.build_decode)(get_config(arch), SHAPES[shape], mesh)
         out["arg_bytes"][f"{arch}/{shape}/{mp}"] = dryrun.local_bytes(args)
-    for arch, shape, mp in dict.fromkeys(RUN + DECODE):
-        rec = dryrun.run_cell(arch, shape, mp, out_dir=None, verbose=False)
-        out["runs"][f"{arch}/{shape}/{mp}"] = {k: rec.get(k) for k in (
-            "status", "error", "memory", "cost_model", "roofline", "chips", "mode")}
+    for arch, shape, mp in dict.fromkeys(RUN + DECODE + PREFILL):
+        out["runs"][f"{arch}/{shape}/{mp}"] = _run(dryrun, arch, shape, mp)
 
     mesh = make_production_mesh()
     x = distribute_tensor(torch.empty(4096, 2048, device="meta"), mesh, [Shard(0), Replicate()])
@@ -105,22 +122,43 @@ def _child() -> None:
     with dryrun.Counters(params=params) as copied:
         funcol.wait_tensor(funcol.all_gather_tensor(wide.to_local().t().contiguous(), 0,
                                                     (mesh, 0)))
+    with dryrun.Counters(params=params) as selected:
+        cols = torch.arange(8, device=wide.to_local().device)
+        funcol.wait_tensor(funcol.all_gather_tensor(wide.to_local().index_select(1, cols), 0,
+                                                    (mesh, 0)))
     with dryrun.Counters(params=params) as rows:
         x.redistribute(mesh, [Replicate(), Replicate()])
     out["param_bytes"] = {name: [c.param_gather_bytes, c.collectives.per_chip_bytes,
                                  c.collectives.op_counts]
-                          for name, c in (("whole", whole), ("copied", copied), ("rows", rows))}
+                          for name, c in (("whole", whole), ("copied", copied),
+                                          ("selected", selected), ("rows", rows))}
     print(json.dumps(out))
 
 
+def _run(dryrun, arch, shape, mp) -> dict:
+    rec = dryrun.run_cell(arch, shape, mp, out_dir=None, verbose=False)
+    return {k: rec.get(k) for k in ("status", "error", "memory", "cost_model", "roofline",
+                                    "chips", "mode")}
+
+
+def _train_child(group: int) -> None:
+    """The port's dry-run of the TRAIN cells of TRAIN_GROUPS[group], printed
+    as one JSON line."""
+    from repro_torch.launch import dryrun
+
+    dryrun.init_fake_world()
+    print(json.dumps({f"{arch}/{shape}/{mp}": _run(dryrun, arch, shape, mp)
+                      for arch, shape, mp in TRAIN_GROUPS[group]}))
+
+
 def _reference_child() -> None:
-    """The reference's dry-run of the DECODE cells, printed as one JSON line:
-    each cell's status, collective bytes and FLOPs per device, and dominant
-    roofline term."""
+    """The reference's dry-run of the DECODE and PREFILL cells, printed as
+    one JSON line: each cell's status, collective bytes and FLOPs per
+    device, and dominant roofline term."""
     from repro.launch import dryrun  # sets 512 placeholder devices before JAX starts
 
     out = {}
-    for arch, shape, mp in DECODE:
+    for arch, shape, mp in DECODE + PREFILL:
         rec = dryrun.run_cell(arch, shape, mp, out_dir=None, verbose=False)
         out[f"{arch}/{shape}/{mp}"] = {
             "status": rec["status"], "error": rec.get("error"),
@@ -147,8 +185,8 @@ def _result(proc: subprocess.Popen) -> dict:
 
 @pytest.fixture(scope="module")
 def children():
-    """The port's child and the reference's, run side by side."""
-    procs = [_start("--child"), _start("--reference")]
+    """The port's three children and the reference's, run side by side."""
+    procs = [_start("--child"), _start("--reference"), _start("--train=0"), _start("--train=1")]
     try:
         return [_result(p) for p in procs]
     finally:
@@ -164,6 +202,11 @@ def child(children):
 @pytest.fixture(scope="module")
 def reference(children):
     return children[1]
+
+
+@pytest.fixture(scope="module")
+def train_runs(children):
+    return {**children[2], **children[3]}
 
 
 def _reference_arg_bytes(arch, shape_name, multi_pod) -> int:
@@ -268,13 +311,15 @@ def test_meshes(child):
 
 def test_counters_count_parameter_gathers(child):
     """A gather whose input is parameter storage counts as parameter bytes,
-    also when it gathers the output of an earlier gather of it or a
-    ``.contiguous()`` copy of it; an activation's gather does not."""
+    also when it gathers the output of an earlier gather of it, a
+    ``.contiguous()`` copy of it or a selection of its columns; an
+    activation's gather does not."""
     pb = child["param_bytes"]
     local = 2048 * 8192 * 4 / 256
     assert pb["whole"][2] == {"all-gather": 2}
     assert pb["whole"][0] == pb["whole"][1] == local * 15 + local * 16 * 15
     assert pb["copied"][0] == pb["copied"][1] == local * 16 * 15 / 16
+    assert pb["selected"][0] == pb["selected"][1] == 2048 * 8 * 4 * 15
     assert pb["rows"][0] == 0 and pb["rows"][1] > 0
 
 
@@ -315,7 +360,43 @@ def test_prefill_gathers_weights_no_more_than_before(child):
     assert cost["param_gather_bytes"] > 0
 
 
+@pytest.mark.parametrize("arch,shape,multi_pod", PREFILL)
+def test_mamba_prefill_moves_no_more_than_the_reference(child, reference, arch, shape,
+                                                        multi_pod):
+    """The Mamba mixer moves ``in_proj``'s output once (an all-to-all to z,
+    xBC and dt each on its own width) where each of its six slices used to
+    gather all of it: per device, collective bytes at most the reference's
+    dry-run's of the same cell, and parameter bytes no more than before."""
+    key = f"{arch}/{shape}/{multi_pod}"
+    rec, ref = child["runs"][key], reference[key]
+    assert rec["status"] == "ok", rec["error"]
+    assert ref["status"] == "ok", ref["error"]
+    cost = rec["cost_model"]
+    assert cost["collective_bytes_per_chip"] <= ref["collective_bytes_per_chip"], (cost, ref)
+    assert cost["param_gather_bytes"] <= PREFILL_PARAM_BYTES[arch], cost
+    assert cost["collective_op_bytes"]["all-to-all"] > 0, cost
+
+
+@pytest.mark.parametrize("arch,shape,multi_pod", list(TRAIN))
+def test_train_moves_no_more_than_before(train_runs, arch, shape, multi_pod):
+    """The train cells with Mamba layers move fewer collective bytes than
+    when the mixer's slices gathered the whole projection; qwen2-moe's,
+    whose expert leaves the rules split over 'data', no more than when
+    every train step gathered them (the byte rule counts the backward pass
+    too, where moving the tokens costs more); none more parameter bytes."""
+    rec = train_runs[f"{arch}/{shape}/{multi_pod}"]
+    assert rec["status"] == "ok", rec["error"]
+    cost = rec["cost_model"]
+    before, param_before = TRAIN[(arch, shape, multi_pod)]
+    if arch.startswith(("mamba2", "jamba")):
+        assert cost["collective_bytes_per_chip"] < before, cost
+    assert cost["collective_bytes_per_chip"] <= before, cost
+    assert cost["param_gather_bytes"] <= param_before, cost
+
+
 if __name__ == "__main__" and sys.argv[1:] == ["--child"]:
     _child()
 elif __name__ == "__main__" and sys.argv[1:] == ["--reference"]:
     _reference_child()
+elif __name__ == "__main__" and sys.argv[1:2] in (["--train=0"], ["--train=1"]):
+    _train_child(int(sys.argv[1][-1]))
