@@ -131,9 +131,11 @@ NCCL group, the 1x1 mesh over the card, deterministic algorithms): the
 ``lm_serving`` cut served unsharded twice (the control) and then with its
 weights placed by the serve rules and the serve profile installed, so the
 kernels are reached through ``local_map`` on local shards: the same 32
-tokens, the prefill logits within E2E_TOL, the same launches; and one train
+tokens, the prefill logits within E2E_TOL, the same launches; one train
 step at the ``training`` cut in float32 compute, unsharded and under the
-train rules: loss and gradients within E2E_TOL, no launch.  ``dryrun``:
+train rules: loss and gradients within E2E_TOL, no launch; and that state
+after a second step checkpointed on the local disk and restored onto a
+sharded and a plain template, bit for bit, the next step too.  ``dryrun``:
 ``python -m repro_torch.launch.dryrun`` for eight production cells (qwen3-moe
 train_4k and decode_32k on 16x16 and 2x16x16, jamba decode_32k, mamba2
 long_500k, mamba2 and jamba prefill_32k), each in a process of its own
@@ -1899,20 +1901,141 @@ def _sharded_train(mesh):
     torch.cuda.synchronize()
     launches1 = launch_counts()
     grad_err = _max_rel_leaf_err([full(p.grad) for p in state.params.parameters()], grads0)
+    leaves = len(grads0)
+    del grads0
     t0 = time.perf_counter()
     state, m2 = step(state, batch)
     torch.cuda.synchronize()
     out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": t["batch"], "seq": t["seq"],
            "microbatches": t["microbatches"], "lr": CHECK_LR, "compute_dtype": cfg.compute_dtype,
            "loss": float(m0["loss"]), "loss_err": abs(float(m1["loss"]) - float(m0["loss"])),
-           "grad_rel_err": grad_err, "leaves": len(grads0),
+           "grad_rel_err": grad_err, "leaves": leaves,
            "launches_plain": launches0, "launches": launches1,
            "placements_w_gate": str(state.params.blocks[0].ffn.moe.w_gate.placements),
            "warm_step_ms": (time.perf_counter() - t0) * 1e3,
            "step_peak_bytes": torch.cuda.max_memory_allocated(),
            "loss_second_step": float(m2["loss"])}
+    del params
+    held = [state]  # handed over, so that the checkpoint phase can free it
+    del state
+    out["checkpoint"] = _sharded_checkpoint(model, opt, step, batch, held, mesh)
     set_activation_sharding(None)
-    del state, params, grads0
+    return out
+
+
+def _digests(leaves) -> list:
+    """Per leaf, two int64 sums (wrapping) of its bits read as integers: the
+    plain sum, and each element's times its position + 1.  Equal bits give
+    equal digests; a changed, moved or swapped element changes them.  On the
+    card, a chunk of 2^22 elements at a time."""
+    import torch
+
+    from repro_torch.models.spmd import is_dtensor
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    chunk = 1 << 22
+    out = []
+    for x in leaves:
+        bits = (x.to_local() if is_dtensor(x) else x).detach().reshape(-1)
+        bits = bits.view(ints[bits.element_size()])
+        pos = torch.arange(1, min(chunk, bits.numel()) + 1, dtype=torch.int64, device=bits.device)
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=bits.device)
+        for i in range(0, bits.numel(), chunk):
+            c = bits[i:i + chunk].to(torch.int64)
+            s1 = s1 + c.sum()
+            s2 = s2 + (c * (pos[:c.numel()] + i)).sum()
+        out.append((int(s1), int(s2)))
+    return out
+
+
+def _host_room(root, nbytes) -> dict:
+    """Free disk under ``root`` and available host memory; fails unless both
+    can take ``nbytes`` (the checkpoint, and its host snapshot)."""
+    import shutil
+
+    free = shutil.disk_usage(root).free
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable"))
+    if free < 1.05 * nbytes or avail < 1.1 * nbytes:
+        raise AssertionError(f"a {nbytes}-byte checkpoint: {free} bytes free on disk under "
+                             f"{root}, {avail} bytes of host memory available")
+    return {"disk_free_bytes": free, "host_available_bytes": avail}
+
+
+def _sharded_checkpoint(model, opt, step, batch, held, mesh) -> dict:
+    """(3) of :func:`phase_sharded`: the sharded train state after its
+    second step (the one item of ``held``, taken out), saved by
+    ``CheckpointManager`` into a temporary directory on the local disk (the
+    host snapshot, then the write), then the next step from it; restored
+    onto a meta template of the same placements
+    (every leaf's digest against the state's before the save, and the next
+    step from it against the one before, bit for bit) and onto a plain meta
+    template (the digests again).  The card cannot hold two such states:
+    each is freed before the next."""
+    import resource
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.sharding import distribute_params, make_sharding_rules, param_specs
+    from repro_torch.runtime.train import TrainState
+
+    def leaves(s):
+        return tree_leaves([s.params, s.opt_state, s.step])
+
+    def template(sharded):
+        params = model.abstract_params().requires_grad_()
+        if sharded:
+            params = distribute_params(params, param_specs(params, make_sharding_rules(
+                mesh, "train")), mesh)
+        return TrainState(params=params, opt_state=adamw_init(opt, params),
+                          step=torch.zeros((), dtype=torch.int32, device="meta"))
+
+    state = held.pop()
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(state))
+    root = tempfile.mkdtemp(prefix="ckpt_")
+    out = {"bytes": nbytes, "leaves": len(leaves(state)), **_host_room(root, nbytes),
+           "host_peak_rss_before_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+    try:
+        saved = _digests(leaves(state))
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(2, state)
+        out["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        out.update(write_s=mgr.last_save["write_s"], snapshot_bytes=mgr.last_save["snapshot_bytes"],
+                   host_peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+        state, m3 = step(state, batch)
+        after = _digests(leaves(state))
+        del state
+        torch.cuda.empty_cache()
+
+        restore_s, equal = {}, {}
+        for name, like in (("sharded", template(True)), ("plain", template(False))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = mgr.restore(like, device=DEVICE)[1]
+            torch.cuda.synchronize()
+            restore_s[name] = time.perf_counter() - t0
+            equal[name] = _digests(leaves(got)) == saved
+            if name == "sharded":
+                placed = got.params.blocks[0].ffn.moe.w_gate.placements
+                out["restored_placements_w_gate"] = str(placed)
+                got, m = step(got, batch)
+                out["next_step_equal"] = (float(m["loss"]) == float(m3["loss"])
+                                          and float(m["grad_norm"]) == float(m3["grad_norm"])
+                                          and _digests(leaves(got)) == after)
+            del got
+            torch.cuda.empty_cache()
+        out.update(restore_s=restore_s, round_trip_equal=equal,
+                   host_peak_rss_after_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                   * 1024)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -1980,6 +2103,14 @@ def phase_sharded(dryrun_alive: int):
     the train rules from the same seed: the loss and every gradient leaf
     (relative to its largest magnitude) within E2E_TOL, no kernel launched;
     a second sharded step is timed and the peak memory of both read.
+    (3) That state (37.4 GB of f32 masters and moments) checkpointed by
+    ``CheckpointManager`` on the local disk (free disk and host memory
+    checked first), restored onto a meta template of the same placements and
+    onto a plain one: every leaf bit-equal to the saved state's (by digest:
+    the card holds one such state at a time), and the next step from the
+    restored sharded state bit-equal to the next step from the state before
+    the save; its bytes, snapshot ms, write s, restore s and the host's peak
+    RSS.
     ``dryrun_alive``, recorded, is the number of dry-run processes still
     running while it is timed (0: the dry-run is waited for first).
     Returns the child's record.
@@ -1998,6 +2129,11 @@ def phase_sharded(dryrun_alive: int):
         raise AssertionError(f"sharded train step differs from unsharded: {train}")
     if any(train["launches"].values()) or any(train["launches_plain"].values()):
         raise AssertionError(f"the train step launched kernels: {train}")
+    ck = train["checkpoint"]
+    if not (all(ck["round_trip_equal"].values()) and ck["next_step_equal"]):
+        raise AssertionError(f"the sharded checkpoint's round trip is not bit-exact: {ck}")
+    if ck["snapshot_bytes"] != ck["bytes"]:
+        raise AssertionError(f"one rank's snapshot is not the whole state: {ck}")
     return res
 
 

@@ -21,6 +21,7 @@ from .ops import (
     make_bucketed_spmv_fn,
     make_ep_spmv_fn,
     pad_plan_operands,
+    resolve_plan,
     spmv_hbm_traffic_model,
 )
 
@@ -36,6 +37,7 @@ __all__ = [
     "moe_mlp",
     "pad_plan_operands",
     "reset_launch_counts",
+    "resolve_plan",
     "spmv_hbm_traffic_model",
     "spmv_software_cache",
     "spmv_streaming",

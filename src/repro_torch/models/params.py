@@ -10,10 +10,12 @@ through :meth:`Params.graph_tree`, which keeps them in autograd's graph.
 :func:`params_from_reference` turns the JAX package's parameter pytree
 (or a tree of the same structure, such as AdamW's moments), given as numpy
 arrays, into that tree, so both packages compute with the same weights;
-:meth:`Params.reference_tree` and :func:`from_reference_layout` go between
-the port's per-layer modules and the reference's stacked layout, which is
-the layout of a checkpoint.  :func:`tree_map` and :func:`tree_leaves` walk
-nested dicts, lists and ``Params`` in one fixed order.
+:meth:`Params.stacked_parts` and :meth:`Params.map_stacked` place each
+per-layer weight in the reference's stacked layout (the sharding rules' and
+a checkpoint's) and back; :meth:`Params.reference_tree` stacks the weights
+into that layout.
+:func:`tree_map` and :func:`tree_leaves` walk nested dicts, lists and
+``Params`` in one fixed order.
 """
 from __future__ import annotations
 
@@ -23,8 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["Params", "from_reference_layout", "map_named", "params_from_reference", "tree_leaves",
-           "tree_map"]
+__all__ = ["Params", "map_named", "params_from_reference", "tree_leaves", "tree_map"]
 
 
 class Params(nn.Module):
@@ -70,23 +71,58 @@ class Params(nn.Module):
         as they are are shared."""
         return Params(map_named(self.tree(), fn))
 
-    def reference_tree(self, leaf: Callable = lambda t: t) -> dict:
-        """This tree in the reference's stacked layout: each list of modules
-        becomes one subtree whose leaves stack the modules' ``leaf(weight)`` on
-        a new leading axis (``torch.stack``, or ``np.stack`` where ``leaf``
-        returns numpy arrays)."""
-        out: dict = {name: leaf(p.data) for name, p in self._parameters.items()}
-        for name, m in self._modules.items():
-            if isinstance(m, nn.ModuleList):
-                subs = [b.reference_tree(leaf) for b in m]
-                out[name] = tree_map(lambda *xs: _stack(xs), *subs)
-            else:
-                out[name] = m.reference_tree(leaf)
+    def stacked_parts(self):
+        """``(path, index, weight)`` for each weight: ``path`` its leaf in the
+        reference's stacked layout (each list of modules one subtree whose
+        leaves stack its modules' weights), ``index`` its place in that
+        leaf's stack dims (one for each list it sits in).  Each leaf's parts
+        come in row-major order of ``index``."""
+        def walk(mod, path, index):
+            for name, p in mod._parameters.items():
+                yield path + (name,), index, p
+            for name, m in mod._modules.items():
+                if isinstance(m, nn.ModuleList):
+                    for i, b in enumerate(m):
+                        yield from walk(b, path + (name,), index + (i,))
+                else:
+                    yield from walk(m, path + (name,), index)
+
+        return walk(self, (), ())
+
+    def map_stacked(self, fn: Callable) -> "Params":
+        """The inverse of :meth:`stacked_parts`: a ``Params`` of this one's
+        structure whose weight at each ``(path, index)`` is ``fn(path, index,
+        weight)``, frozen or trainable as this one is."""
+        def walk(mod, path, index):
+            out = {name: fn(path + (name,), index, p) for name, p in mod._parameters.items()}
+            for name, m in mod._modules.items():
+                out[name] = ([walk(b, path + (name,), index + (i,)) for i, b in enumerate(m)]
+                             if isinstance(m, nn.ModuleList) else walk(m, path + (name,), index))
+            return out
+
+        trainable = any(p.requires_grad for p in self.parameters())
+        return Params(walk(self, (), ())).requires_grad_(trainable)
+
+    def reference_tree(self) -> dict:
+        """This tree in the reference's stacked layout (on the meta device
+        this costs nothing)."""
+        parts: dict = {}
+        for path, index, p in self.stacked_parts():
+            parts.setdefault(path, []).append((index, p.data))
+        out: dict = {}
+        for path, xs in parts.items():
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = (xs[0][1] if not xs[0][0] else
+                              torch.stack([x for _, x in xs]).reshape(stack_shape(xs)
+                                                                      + xs[0][1].shape))
         return out
 
 
-def _stack(xs):
-    return np.stack(xs) if isinstance(xs[0], np.ndarray) else torch.stack(xs)
+def stack_shape(parts) -> tuple:
+    """The stack dims of a stacked leaf from its ``(index, weight)`` parts."""
+    return tuple(max(ix[d] for ix, _ in parts) + 1 for d in range(len(parts[0][0])))
 
 
 def map_named(tree, fn: Callable[[str, torch.Tensor], torch.Tensor]):
@@ -132,23 +168,6 @@ def _from_numpy(a) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
-
-
-def from_reference_layout(tree: dict, like: Params, device=None) -> Params:
-    """The inverse of :meth:`Params.reference_tree`: a ``Params`` of ``like``'s
-    structure whose per-layer weights are copies of the slices of ``tree``'s
-    stacked tensor leaves, on ``device`` (each ``like`` leaf's device if
-    None), frozen or trainable as ``like`` is."""
-    def walk(t, mod, index):
-        out = {}
-        for name, p in mod._parameters.items():
-            out[name] = t[name][index].to(device or p.device, copy=True)
-        for name, m in mod._modules.items():
-            out[name] = ([walk(t[name], b, index + (i,)) for i, b in enumerate(m)]
-                         if isinstance(m, nn.ModuleList) else walk(t[name], m, index))
-        return out
-    trainable = any(p.requires_grad for p in like.parameters())
-    return Params(walk(tree, like, ())).requires_grad_(trainable)
 
 
 def params_from_reference(tree: dict, cfg, device) -> Params:

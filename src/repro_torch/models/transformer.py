@@ -56,8 +56,8 @@ from .layers import (
 from ..runtime.axes import get_activation_sharding, hint
 from .moe import init_moe_params, moe_ffn
 from .params import Params, map_named
-from .spmd import (col, col_linear, is_dtensor, local_index, place, placements, row, shard_map, splits,
-                   zeros)
+from .spmd import (col, col_linear, grad_layout, is_dtensor, local_index, place, placements, row,
+                   shard_map, splits, zeros)
 
 __all__ = [
     "attn_block",
@@ -513,14 +513,16 @@ def moe_block(p, cfg, h, capacity: int, train: bool = False):
     x = rms_norm(h, p["norm"], cfg.norm_eps).reshape(b * s, d)
     # Dispatch-shard count = the data-parallel degree under a profile (see
     # moe_ffn): the per-shard capacity slices keep the scatter shard-local.
-    ns = 1
     prof = get_activation_sharding()
-    if prof is not None:
-        ns = prof.axis_size(prof.logical.get("batch", ()))
-        if b % ns or (b * s) % ns:
-            ns = 1
+    ways = prof.axis_size(prof.logical.get("batch", ())) if prof is not None else 1
+    ns = 1 if b % ways or (b * s) % ways else ways
+    split = b % ways  # the tokens split over the batch axes where the batch does not:
+    if split:  # whole again before the view back to (B, S, D), both ways
+        x = grad_layout(x, None, None)
     y, aux = moe_ffn(x, p["moe"], cfg.moe.n_experts, cfg.moe.top_k, capacity,
                      n_dispatch_shards=ns, train=train)
+    if split:
+        y = hint(y, None, None)
     return hint(h + y.reshape(b, s, d), "batch", None, None), aux
 
 

@@ -10,7 +10,8 @@ replica health, failover breakers and flood schedules on the first four;
 complete checkpoint and goes on from there, up to ``max_restarts`` times.
 The one line that differs is ``FaultTolerantLoop``'s structure template,
 which the reference builds with ``jax.tree.map``: here it is the state
-itself (restore reads only its structure).  ``CheckpointManager`` is named
+itself (restore reads only its structure and layout, so a sharded run
+restarts on its own mesh and placements).  ``CheckpointManager`` is named
 for type checkers only, so that importing this module (as a replica worker
 does) loads no torch.
 """

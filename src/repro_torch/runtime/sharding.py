@@ -39,6 +39,7 @@ layout, so the results agree (the 2x2 mesh test serves through it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -52,6 +53,7 @@ __all__ = [
     "cache_spec_tree",
     "distribute_params",
     "named",
+    "param_shardings",
     "tree_named",
 ]
 
@@ -234,24 +236,27 @@ def distribute_params(params, specs: dict, mesh):
     """The port's per-layer ``Params`` as DTensors on ``mesh``, each leaf
     placed by its stacked spec with the stack dims (one for each list of
     layers it sits in) dropped; trainable where ``params`` is."""
-    from torch import nn
     from torch.distributed.tensor import distribute_tensor
 
-    from ..models.params import Params
+    def place(path, index, p):
+        spec = functools.reduce(lambda t, k: t[k], path, specs)
+        return distribute_tensor(p.detach(), mesh, to_placements(spec[len(index):], mesh))
 
-    def walk(mod, spec, depth):
-        out = {}
-        for name, p in mod._parameters.items():
-            out[name] = distribute_tensor(p.detach(), mesh, to_placements(spec[name][depth:], mesh))
-        for name, m in mod._modules.items():
-            if isinstance(m, nn.ModuleList):
-                out[name] = [walk(b, spec[name], depth + 1) for b in m]
-            else:
-                out[name] = walk(m, spec[name], depth)
-        return out
+    return params.map_stacked(place)
 
-    trainable = any(p.requires_grad for p in params.parameters())
-    return Params(walk(params, specs, 0)).requires_grad_(trainable)
+
+def param_shardings(specs: dict, mesh) -> dict:
+    """The ``shardings`` of :func:`repro_torch.ckpt.restore_pytree` for a
+    ``Params`` placed by ``specs`` (:func:`param_specs`) on ``mesh``: the
+    stacked layout with a ``(mesh, placements)`` pair of one layer's tensor
+    at each leaf (its stack dims dropped, as :func:`distribute_params`
+    drops them)."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        return (mesh, to_placements(t[_n_stack_dims(path):], mesh))
+
+    return walk(specs, ())
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,15 @@
 """The port's checkpoints and fault-tolerant loop on the CPU.
 
 The reference's checkpoint tests (``tests/test_checkpoint.py``) on the port,
-with restore onto a device in place of re-sharding; the on-disk format
+the elastic re-mesh one in a one-rank gloo group; the on-disk format
 across the two packages in both directions (the same tree written by each
 gives the same manifest and the same bytes, and each restores the other's
 bit for bit); a reduced qwen3-moe ``TrainState`` written by the reference's
 ``CheckpointManager`` restored by the port, whose next step gives the
-reference's loss; and the reference's restart tests (``tests/test_fault.py``)
-on the port's ``run_training`` and ``FaultTolerantLoop``.
+reference's loss, and restored by a 2x2 gloo group whose sharded save the
+reference reads back; and the reference's restart tests
+(``tests/test_fault.py``) on the port's ``run_training`` and
+``FaultTolerantLoop``.
 """
 import json
 import os
@@ -97,6 +99,21 @@ class TestSaveRestore:
         assert latest_step(root) == 5
 
 
+    def test_restore_that_cannot_place_a_leaf_raises(self, tmp_path):
+        """A meta template's plain leaf needs ``device=``, and a template of
+        another shape is refused: nothing comes back placed otherwise."""
+        t = _tree()
+        d = str(tmp_path / "ck")
+        save_pytree(t, d)
+        meta = {"a": torch.zeros(4, 8, device="meta"), "nested": dict(t["nested"])}
+        with pytest.raises(ValueError, match="device="):
+            restore_pytree(d, meta)
+        got = restore_pytree(d, meta, device="cpu")
+        assert got["a"].device.type == "cpu" and torch.equal(got["a"], t["a"])
+        with pytest.raises(ValueError, match="stored"):
+            restore_pytree(d, {"a": torch.zeros(8, 4), "nested": dict(t["nested"])})
+
+
 class TestManager:
     def test_async_save_and_restore_latest(self, tmp_path):
         mgr = CheckpointManager(str(tmp_path), keep=2)
@@ -138,14 +155,114 @@ class TestManager:
 
 class TestRestoreOntoDevice:
     def test_restore_onto_a_given_device(self, tmp_path):
-        """The storage is device-free: each leaf lands on the device asked for
-        (the port's counterpart of the reference's elastic re-mesh test)."""
+        """The storage is device-free: each plain leaf lands on the device
+        asked for (``device=``; re-sharding onto a mesh is
+        :class:`TestElasticRemesh`)."""
         t = _tree()
         d = str(tmp_path / "ck")
         save_pytree(t, d)
         r = restore_pytree(d, t, device=torch.device("cpu"))
         _assert_trees_equal(t, r)
         assert all(leaf.device == torch.device("cpu") for leaf in _leaves(r))
+
+
+class TestShardRegions:
+    def test_regions_write_and_read_back(self, tmp_path):
+        """A rank's region of a leaf file (any box of a C-ordered array, the
+        empty one included) is written in place and read back as numpy
+        slices it, in 300 seeded boxes of up to 4 dims."""
+        from repro_torch.ckpt.checkpoint import _read_box, _write_box
+
+        rng = np.random.default_rng(11)
+        path = str(tmp_path / "leaf.bin")
+        for _ in range(300):
+            shape = [int(n) for n in rng.integers(1, 6, rng.integers(1, 5))]
+            off = [int(rng.integers(0, n)) for n in shape]
+            size = [int(rng.integers(0, n - o + 1)) for n, o in zip(shape, off)]
+            whole = rng.standard_normal(shape).astype(np.float32)
+            box = tuple(slice(o, o + z) for o, z in zip(off, size))
+            fd = os.open(path, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
+            os.ftruncate(fd, whole.nbytes)
+            os.close(fd)
+            _write_box(path, shape, whole.dtype, off, size, whole[box])
+            want = np.zeros_like(whole)
+            want[box] = whole[box]
+            assert np.array_equal(np.fromfile(path, np.float32).reshape(shape), want)
+            whole.tofile(path)
+            assert np.array_equal(_read_box(path, shape, off, size, whole.dtype), whole[box])
+
+
+class TestElasticRemesh:
+    def test_restore_with_new_sharding(self, tmp_path):
+        """The reference's elastic restart test: the tree saved by one
+        process, restored onto a 1x1 mesh through ``shardings`` (a meta
+        template, every leaf replicated) in a one-rank gloo group (the mesh
+        harness's, in a process of its own: this one keeps no group).  Every
+        leaf comes back a DTensor with those placements and the saved values."""
+        from test_torch_mesh import run_ranks
+
+        t = _tree()
+        d = str(tmp_path / "ck")
+        save_pytree(t, d)
+        results, hung = run_ranks([("tree", "elastic_tree", None, True, {}, d)], shape=(1, 1),
+                                  timeout=120)
+        assert not hung and "error" not in results[0], results
+        got = results[0]["tree"]
+        for key, want in (("a", t["a"]), ("b", t["nested"]["b"]), ("c", t["nested"]["c"])):
+            assert got[key]["dtensor"], key
+            assert got[key]["placements"] == ["Replicate", "Replicate"], got[key]
+            assert got[key]["dtype"] == str(want.dtype), got[key]
+            np.testing.assert_array_equal(got[key]["values"], want.float().numpy()
+                                          if want.dtype == torch.bfloat16 else want.numpy())
+
+
+def test_reference_train_state_on_a_2x2_group(tmp_path):
+    """A reduced qwen3-moe ``TrainState`` after one step, written by the
+    reference's ``CheckpointManager``, restored by a 2x2 gloo group onto the
+    train rules' placements: its next step gives the reference's loss.  The
+    group's own (sharded) save of that state, read by the reference's
+    ``restore_pytree`` onto a 1x1 JAX mesh through ``shardings``, is bit for
+    bit the port's unsharded state."""
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from test_torch_mesh import run_ranks
+
+    arch = "qwen3-moe-30b-a3b"
+    cfg = get_config(arch, reduced=True)
+    jm = JaxModel(jax_get_config(arch, reduced=True))
+    jopt = JaxAdamWConfig(lr=1e-3)
+    jstep = jax.jit(jax_make_train_step(jm, jopt, num_microbatches=2))
+    jstate, _ = jstep(jax_init_train_state(jm, jopt, jax.random.PRNGKey(0)),
+                      jax.tree.map(jnp.asarray, _batch(cfg, 0)))
+    root, out = str(tmp_path / "ref"), str(tmp_path / "group")
+    JaxCheckpointManager(root).save(1, jstate, blocking=True)
+    batch = _batch(cfg, 1)
+    _, jmet = jstep(jstate, jax.tree.map(jnp.asarray, batch))
+
+    results, hung = run_ranks([("ref", "from_reference", arch, True, {},
+                                {"root": root, "out": out, "batch": batch})])
+    assert not hung and len(results) == 4, (hung, sorted(results))
+    for r, res in results.items():
+        assert "error" not in res, res["error"]
+        got = res["ref"]
+        assert got["step"] == 1 and "Shard" in got["placements"], got
+        np.testing.assert_allclose(got["loss"], float(jmet["loss"]), rtol=1e-5)
+
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    abstract = jax.eval_shape(lambda: jstate)
+    shardings = jax.tree.map(lambda _: NamedSharding(mesh, P()), abstract)
+    sharded = jax_restore_pytree(out, abstract, shardings=shardings)
+    plain = CheckpointManager(root).restore(
+        init_train_state(Model(cfg, "cpu"), AdamWConfig(lr=1e-3), 5))[1]
+    save_pytree(plain, str(tmp_path / "plain"))
+    want = jax_restore_pytree(str(tmp_path / "plain"), abstract)
+    got_leaves, want_leaves = jax.tree.leaves(sharded), jax.tree.leaves(want)
+    assert len(got_leaves) == len(want_leaves) == len(jax.tree.leaves(jstate))
+    for x, y in zip(got_leaves, want_leaves):
+        assert isinstance(x.sharding, NamedSharding)
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert np.array_equal(np.asarray(x), np.asarray(y))
 
 
 def _interop_np():

@@ -8,7 +8,11 @@ granite-3-8b (dense) and mamba2-2.7b (ssm), the sharded prefill and decode
 of reduced jamba-1.5-large-398b (hybrid), one Mamba layer's forward and
 backward at both families' widths, a train step whose experts' F dim is on
 'data', the differentiable slab sum and ``compressed_psum`` over the four
-ranks (against its numpy formula), each against the unsharded port
+ranks (against its numpy formula), the sharded checkpoint of each train
+case (:func:`remesh_case`: restored on the same placements, on (4, 1), (1,
+4) and plain, byte for byte the unsharded save, a ``FaultTolerantLoop``
+restart, a failed rank's save) and its regions against DTensor's chunking
+on uneven leaves, each against the unsharded port
 on the same weights in the same process, with the same
 activation-sharding profile installed (so MoE splits its capacity into the
 same two dispatch shards).  Jamba's whole train step is not among them: one
@@ -28,6 +32,8 @@ The harness (:func:`run_ranks` and the case functions) is also the one
 widths.
 """
 import dataclasses
+import math
+import os
 import socket
 import time
 import traceback
@@ -347,7 +353,428 @@ def hint_case(mesh):
             "expected_guarded": [str(Replicate()), str(Shard(1))]}
 
 
-def _worker(rank, port, backend, cases, out):
+def _profile(mesh):
+    from repro_torch.runtime.axes import ActivationSharding, set_activation_sharding
+
+    set_activation_sharding(ActivationSharding(mesh, {"batch": ("data",), "model": ("model",)}))
+
+
+def _shared_dir():
+    """A new directory made by rank 0 (``TMPDIR``), its path on every rank."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    box = [tempfile.mkdtemp(prefix="ckpt_") if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _drop_dir(root):
+    import shutil
+
+    import torch.distributed as dist
+
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _train_setup(cfg, device, sizes):
+    """The model, AdamW (lr 1e-5), the train step and ``batch(i)``, a seeded batch for step i."""
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import make_train_step
+
+    b, s, nmb = sizes
+    model = Model(cfg, device)
+    opt = AdamWConfig(lr=1e-5)
+
+    def batch(i):
+        rng = np.random.default_rng(10 + i)
+        return {k: torch.from_numpy(rng.integers(2, cfg.vocab_size, (b, s))).to(device)
+                for k in ("tokens", "labels")}
+
+    return model, opt, make_train_step(model, opt, num_microbatches=nmb), batch
+
+
+def train_state(model, opt, mesh, like=False):
+    """The train state from seed 0 placed by ``mesh``'s train rules (None:
+    plain); ``like``: the same on the meta device, a restore's template."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.sharding import distribute_params, make_sharding_rules, param_specs
+    from repro_torch.runtime.train import TrainState
+
+    params = (model.abstract_params() if like else model.init(0)).requires_grad_()
+    if mesh is not None:
+        params = distribute_params(params, param_specs(params, make_sharding_rules(mesh, "train")),
+                                   mesh)
+    return TrainState(params=params, opt_state=adamw_init(opt, params),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device="meta" if like else model.device))
+
+
+def state_leaves(state):
+    """Every leaf of a train state (weights, moments, count, step)."""
+    from repro_torch.models.params import tree_leaves
+
+    return tree_leaves([state.params, state.opt_state, state.step])
+
+
+def _locals(state):
+    """This rank's shard of every leaf of a train state, on the host."""
+    from repro_torch.models.spmd import is_dtensor
+
+    return [(x.to_local() if is_dtensor(x) else x).detach().cpu().clone()
+            for x in state_leaves(state)]
+
+
+def _layouts(state):
+    from repro_torch.models.spmd import is_dtensor
+
+    return [(str(x.device_mesh.mesh.tolist()), str(x.placements)) if is_dtensor(x) else None
+            for x in state_leaves(state)]
+
+
+def _plain(state):
+    """The train state with every leaf gathered whole (a plain copy)."""
+    from repro_torch.models.spmd import full
+    from repro_torch.runtime.train import TrainState
+
+    gather = lambda _, w: full(w).detach()
+    o = state.opt_state
+    return TrainState(params=state.params.map(gather),
+                      opt_state={"m": o["m"].map(gather), "v": o["v"].map(gather),
+                                 "count": o["count"]}, step=state.step)
+
+
+def _same_files(a, b):
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def _room(root, logical, world):
+    """Raise unless the disk under ``root`` can take ``logical`` bytes and the
+    host's available memory the ranks' snapshots (``logical`` in all)."""
+    import shutil
+
+    free = shutil.disk_usage(root).free
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable"))
+    if free < 1.05 * logical or avail < 1.25 * logical:
+        raise RuntimeError(f"{logical} checkpoint bytes: {free} bytes free on disk under {root}, "
+                           f"{avail} bytes of host memory available ({world} ranks)")
+    return {"disk_free_bytes": free, "host_available_bytes": avail}
+
+
+def _peak_rss() -> int:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def remesh_case(mesh, cfg, device, sizes, meshes, steps=1, cpu_checks=True):
+    """A sharded train state checkpointed and restored elsewhere.
+
+    ``steps`` steps under the train rules on the 2x2 ``mesh``, then
+    ``CheckpointManager.save`` (async, then ``wait()``), restored: (a) onto a
+    meta template of the same placements: every local shard against the
+    saved state's, and the next step against the unbroken run's; (b) onto
+    plain tensors (the unsharded continuation), onto the (4, 1) mesh by
+    ``param_shardings`` of its rules and onto a meta template on the (1, 4)
+    mesh: one step each, its loss and every gradient leaf (relative to its
+    largest magnitude) against the unsharded continuation's, the 2x2 one's
+    too.  The unsharded continuation routes each token to the experts the
+    sharded step routed it to, and counts the tokens whose own top-k
+    differs (two float32 programs may break a near-tie in a token's router
+    logits apart: at published widths a few tokens in 4,096 do, and their
+    experts' gradients, and all below them, then part by ~0.1).
+    ``cpu_checks`` adds (c) the directory against the unsharded
+    ``save_pytree`` of the gathered values, byte for byte, (d)
+    ``FaultTolerantLoop`` from the same seed over the same batches,
+    checkpointing every step, with a failure injected before its last step:
+    every local shard at its end against the unbroken run's, and (e) a save
+    in which rank 1's writer raises, then one in which rank 0's commit (its
+    manifest) does.  For a MoE model, a control: the plain restore with
+    layers 0 and 1's routers swapped (a restore that put a layer's weights
+    at another's index) routes with the 2x2 step's experts replayed, and
+    counts the tokens whose own top-k differs, per routing call.  Also this
+    rank's snapshot, local and
+    logical bytes, the times, the bytes each restore read on this rank and
+    the host's peak RSS."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import CheckpointManager, checkpoint, save_pytree
+    from repro_torch.models import moe
+    from repro_torch.models.spmd import full, is_dtensor
+    from repro_torch.runtime import FaultTolerantLoop
+    from repro_torch.runtime.sharding import make_sharding_rules, param_shardings, param_specs
+    from repro_torch.runtime.train import TrainState
+
+    rank = dist.get_rank()
+    model, opt, step, batch = _train_setup(cfg, device, sizes)
+    state = train_state(model, opt, mesh)
+    for i in range(steps):
+        state, _ = step(state, batch(i))
+    leaves = state_leaves(state)
+    logical = sum(x.numel() * x.element_size() for x in leaves)
+    local = sum((x.to_local() if is_dtensor(x) else x).nbytes for x in leaves)
+    root = _shared_dir()
+    out = {"logical_bytes": logical, "local_bytes": local, **_room(root, logical, 4)}
+    mgr = CheckpointManager(root)
+    t0 = time.perf_counter()
+    mgr.save(steps, state)
+    out["save_return_s"] = time.perf_counter() - t0
+    mgr.wait()
+    out.update(mgr.last_save)
+    out["files"] = len(os.listdir(mgr.directory(steps)))
+    if cpu_checks:
+        save_pytree(_plain(state), os.path.join(root, "plain"))
+        out["same_bytes"] = _same_files(mgr.directory(steps), os.path.join(root, "plain"))
+
+        def failed_save(n, name, on_rank):  # (e): ``checkpoint.<name>`` raises on ``on_rank``
+            real = getattr(checkpoint, name)
+
+            def fail(*args):
+                raise OSError("injected write failure")
+
+            setattr(checkpoint, name, fail if rank == on_rank else real)
+            t0 = time.perf_counter()
+            try:
+                mgr.save(n, state)
+                try:
+                    mgr.wait()
+                    raised = None
+                except Exception as e:
+                    raised = type(e).__name__
+            finally:
+                setattr(checkpoint, name, real)
+            wait_s = time.perf_counter() - t0
+            dist.barrier()  # every rank's save has ended before any lists or saves again
+            after = {"raised": raised, "wait_s": wait_s, "latest": mgr.latest(),
+                     "names": sorted(os.listdir(root))}
+            dist.barrier()
+            return after
+
+        out["failed_saves"] = {"rank1_write": failed_save(steps + 1, "_write_pieces", 1),
+                               "rank0_commit": failed_save(steps + 2, "_write_manifest", 0)}
+
+    restore_s, read = {}, {}
+
+    def restore(name, like, **kw):
+        t0 = time.perf_counter()
+        got = mgr.restore(like, steps, device=device, **kw)[1]
+        restore_s[name] = time.perf_counter() - t0
+        read[name] = sum((x.to_local() if is_dtensor(x) else x).nbytes for x in state_leaves(got))
+        return got
+
+    def routed(s, replay=None):
+        """One step from ``s`` on the next batch, and the experts each token
+        went to in each MoE routing call, in call order.  ``replay``: such a
+        list from another run; each call routes its tokens to those experts
+        instead (weighted by this run's own router probabilities), and the
+        tokens whose own top-k differs are counted, per call."""
+        log, otherwise, route = [], [], moe.route
+
+        def recording(x, router, top_k, norm_topk=True):
+            probs, weights, ids = route(x, router, top_k, norm_topk)
+            if replay is not None:
+                theirs = replay[len(log)].to(ids.device)
+                otherwise.append(int((torch.sort(ids, -1).values != torch.sort(theirs, -1).values)
+                                     .any(-1).sum()))
+                ids, weights = theirs, probs.gather(-1, theirs)
+                if norm_topk:
+                    weights = weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+            log.append(full(ids).detach().cpu())
+            return probs, weights, ids
+
+        moe.route = recording
+        try:
+            s, m = step(s, batch(steps))
+        finally:
+            moe.route = route
+        return s, m, (log if replay is None else otherwise)
+
+    # (a) the same placements, bit for bit, and the next step
+    same = restore("2x2", train_state(model, opt, mesh, like=True))
+    out["same_layouts"] = _layouts(same) == _layouts(state)
+    out["same_shards_equal"] = all(torch.equal(a, b) for a, b in zip(_locals(same), _locals(state)))
+    state, m_unbroken = step(state, batch(steps))
+    unbroken = _locals(state)
+    del state, leaves
+    same, m_same, ids_same = routed(same)
+    out["next_step_equal"] = (bool(torch.equal(m_same["loss"], m_unbroken["loss"]))
+                              and all(torch.equal(a, b) for a, b in zip(_locals(same), unbroken)))
+    if cpu_checks:  # (d)
+        fired, calls = [], []
+
+        def batch_fn(i):
+            calls.append(i)
+            if i == steps and not fired:
+                fired.append(i)
+                raise RuntimeError(f"injected failure at step {i}")
+            return batch(i)
+
+        loop = FaultTolerantLoop(step_fn=step, batch_fn=batch_fn, ckpt_every=1,
+                                 ckpt=CheckpointManager(os.path.join(root, "loop"), keep=2))
+        looped, _ = loop.run(train_state(model, opt, mesh), 0, steps + 1)
+        out["loop"] = {"equal": all(torch.equal(a, b) for a, b in zip(_locals(looped), unbroken)),
+                       "calls": calls, "step": int(looped.step)}
+        del looped
+    del unbroken
+
+    # (b) each layout's step against the unsharded continuation under the
+    # same profile (MoE splits its capacity into as many dispatch shards as
+    # the batch axes have ranks, unsharded too)
+    names = [n for n, _ in model.abstract_params().named_parameters()]
+
+    def grads(s):
+        return [full(p.grad).detach().cpu() for p in s.params.parameters()]
+
+    def against_plain(name, target, m, got, ids):
+        _profile(target)
+        plain, m0, otherwise = routed(restore(f"plain/{name}", train_state(model, opt, None,
+                                                                         like=True)), ids)
+        want = grads(plain)
+        del plain
+        errs = [float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                for g, w in zip(got, want)]
+        return {"loss_err": float((m["loss"] - m0["loss"]).abs()), "grad_rel_err": max(errs),
+                "worst_leaves": sorted(zip(names, errs), key=lambda kv: -kv[1])[:3],
+                "tokens_routed_otherwise": otherwise}
+
+    got = grads(same)
+    del same
+    out["continuations"] = {"2x2": against_plain("2x2", mesh, m_same, got, ids_same)}
+    for name in ("4x1", "1x4"):
+        other = meshes[name]
+        _profile(other)
+        if name == "4x1":  # by shardings over the 2x2 template: the reference's NamedSharding tree
+            ps = param_shardings(param_specs(model.abstract_params(),
+                                             make_sharding_rules(other, "train")), other)
+            moved = restore(name, train_state(model, opt, mesh, like=True), shardings=TrainState(
+                params=ps, opt_state={"m": ps, "v": ps, "count": None}, step=None))
+        else:  # by a meta template on that mesh
+            moved = restore(name, train_state(model, opt, other, like=True))
+        layouts = {str(lay) for lay in _layouts(moved) if lay is not None}
+        moved, m, ids = routed(moved)
+        got = grads(moved)
+        del moved
+        out["continuations"][name] = {
+            **against_plain(name, other, m, got, ids), "layouts": len(layouts),
+            "on_mesh": all(str(other.mesh.tolist()) in lay for lay in layouts)}
+    _profile(mesh)
+    if ids_same:
+        wrong = restore("plain/swapped", train_state(model, opt, None, like=True))
+        r0, r1 = (wrong.params.blocks[i].ffn.moe.router for i in (0, 1))
+        with torch.no_grad():
+            swap = r0.clone()
+            r0.copy_(r1)
+            r1.copy_(swap)
+        out["swapped_routers_routed_otherwise"] = routed(wrong, ids_same)[2]
+        del wrong, r0, r1
+    out.update({"restore_s": restore_s, "read_bytes": read, "host_peak_rss": _peak_rss()})
+    _drop_dir(root)
+    return out
+
+
+def boxes_case(mesh):
+    """The checkpoint's shard regions against DTensor's own chunking on
+    uneven leaves (5 rows over 2 and over 4 ranks, 7 columns over 2):
+    ``distribute_tensor`` of an arange, each rank's local shard against the
+    arange's region; a tree of such leaves saved by the group byte for byte
+    as one process saves the whole tensors, and restored onto other uneven
+    placements, each local shard equal to ``distribute_tensor``'s."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.ckpt import restore_pytree, save_pytree
+    from repro_torch.ckpt.checkpoint import _shard_box
+
+    layouts = [[Shard(0), Shard(0)], [Shard(0), Shard(1)], [Shard(1), Replicate()],
+               [Replicate(), Shard(0)], [Shard(1), Shard(0)], [Shard(0), Replicate()]]
+    whole = torch.arange(5 * 7 * 3, dtype=torch.float32).reshape(5, 7, 3)
+    boxes = []
+    for pls in layouts:
+        off, size, _ = _shard_box(whole.shape, mesh, pls)
+        region = whole[tuple(slice(o, o + z) for o, z in zip(off, size))]
+        boxes.append(bool(torch.equal(distribute_tensor(whole, mesh, pls).to_local(), region)))
+    tree = {f"x{i}": distribute_tensor(whole + i, mesh, pls) for i, pls in enumerate(layouts)}
+    tree["bf16"] = distribute_tensor(whole.bfloat16(), mesh, layouts[0])
+    plain = {k: v.full_tensor() for k, v in tree.items()}
+    root = _shared_dir()
+    save_pytree(tree, os.path.join(root, "sharded"))
+    save_pytree(plain, os.path.join(root, "plain"))
+    moved = layouts[1:] + layouts[:1]
+    shardings = {k: (mesh, moved[i % len(moved)]) for i, k in enumerate(sorted(tree))}
+    got = restore_pytree(os.path.join(root, "sharded"), tree, shardings=shardings)
+    restored = all(torch.equal(got[k].to_local(),
+                               distribute_tensor(plain[k], mesh, shardings[k][1]).to_local())
+                   and list(got[k].placements) == list(shardings[k][1]) for k in tree)
+    out = {"boxes": boxes, "same_bytes": _same_files(os.path.join(root, "sharded"),
+                                                     os.path.join(root, "plain")),
+           "restored": restored, "rank": dist.get_rank()}
+    _drop_dir(root)
+    return out
+
+
+def elastic_tree_case(mesh, directory):
+    """The reference's elastic re-mesh test on the port: the tree saved
+    under ``directory`` by one process, restored onto ``mesh`` through
+    ``shardings`` (every leaf replicated): each leaf's placements, and its
+    values as numpy."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.ckpt import restore_pytree
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.spmd import is_dtensor
+
+    like = {"a": torch.zeros(4, 8, device="meta"),
+            "nested": {"b": torch.zeros(3, dtype=torch.bfloat16, device="meta"),
+                       "c": torch.zeros(3, dtype=torch.int32, device="meta")}}
+    pls = [Replicate()] * mesh.ndim
+    got = restore_pytree(directory, like, shardings=tree_map(lambda _: (mesh, pls), like))
+    leaves = {"a": got["a"], "b": got["nested"]["b"], "c": got["nested"]["c"]}
+    return {k: {"dtensor": is_dtensor(v), "placements": [type(p).__name__ for p in v.placements],
+                "dtype": str(v.dtype), "values": v.to_local().float().numpy()
+                if v.dtype == torch.bfloat16 else v.to_local().numpy()}
+            for k, v in leaves.items()}
+
+
+def from_reference_case(mesh, cfg, device, args):
+    """A reduced qwen3-moe ``TrainState`` that the reference's
+    ``CheckpointManager`` wrote under ``args["root"]`` (step 1), restored by
+    the group onto a meta template under the train rules (AdamW lr 1e-3, as
+    the reference's), saved again by the group under ``args["out"]``, then
+    one step on ``args["batch"]`` (2 microbatches) with the batch whole on
+    every rank (so MoE dispatches in one shard, as the reference's one
+    device does): its loss and the restored placements of the first expert
+    leaf."""
+    from repro_torch.ckpt import CheckpointManager, save_pytree
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.axes import ActivationSharding, set_activation_sharding
+    from repro_torch.runtime.train import make_train_step
+
+    model, opt = Model(cfg, device), AdamWConfig(lr=1e-3)
+    step, state = CheckpointManager(args["root"]).restore(train_state(model, opt, mesh, like=True),
+                                                          device=device)
+    save_pytree(state, args["out"])
+    batch = {k: torch.from_numpy(v).to(device) for k, v in args["batch"].items()}
+    set_activation_sharding(ActivationSharding(mesh, {"batch": (), "model": ("model",)}))
+    _, m = make_train_step(model, opt, num_microbatches=2)(state, batch)
+    _profile(mesh)
+    return {"step": step, "loss": float(m["loss"]),
+            "placements": str(state.params.blocks[0].ffn.moe.w_gate.placements)}
+
+
+def _worker(rank, port, backend, cases, out, shape=(2, 2)):
     import torch.distributed as dist
 
     if backend == "nccl":  # rank r on card r
@@ -355,32 +782,49 @@ def _worker(rank, port, backend, cases, out):
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         device = f"cuda:{rank}"
     else:
-        torch.set_num_threads(1)  # four ranks share the caller's cores
+        torch.set_num_threads(1)  # the ranks share the caller's cores
         device = "cpu"
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=4)
+                            world_size=math.prod(shape))
     res = {"rank": rank}
     try:
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.runtime.axes import ActivationSharding, set_activation_sharding
 
-        mesh = make_mesh((2, 2), ("data", "model"), torch.device(device).type)
-        set_activation_sharding(ActivationSharding(mesh, {"batch": ("data",), "model": ("model",)}))
+        mesh = make_mesh(shape, ("data", "model"), torch.device(device).type)
+        others = {}
+
+        def meshes():  # built on first use, by every rank in the same order
+            for name, dims in (("4x1", (4, 1)), ("1x4", (1, 4))):
+                others.setdefault(name, make_mesh(dims, ("data", "model"), mesh.device_type))
+            return others
+
+        _profile(mesh)
         for key, kind, arch, reduced, changes, sizes in cases:
+            cfg = config(arch, reduced, changes) if arch is not None else None
             if kind == "hint":
                 res[key] = hint_case(mesh)
             elif kind == "compressed_psum":
                 res[key] = compressed_psum_case(device, *sizes)
             elif kind == "slab_sum":
                 res[key] = slab_sum_case(mesh)
+            elif kind == "boxes":
+                res[key] = boxes_case(mesh)
+            elif kind == "elastic_tree":
+                res[key] = elastic_tree_case(mesh, sizes)
+            elif kind == "from_reference":
+                res[key] = from_reference_case(mesh, cfg, device, sizes)
             elif kind == "mixer":
-                res[key] = mixer_case(mesh, config(arch, reduced, changes), device, sizes)
+                res[key] = mixer_case(mesh, cfg, device, sizes)
+            elif kind in ("remesh", "train_remesh"):
+                res[key] = remesh_case(mesh, cfg, device, sizes, meshes(),
+                                       steps=1 if kind == "remesh" else 2,
+                                       cpu_checks=kind == "remesh")
             elif kind in ("train", "train_expert_f", "train_expert_whole"):
-                res[key] = train_case(mesh, config(arch, reduced, changes), device, sizes,
+                res[key] = train_case(mesh, cfg, device, sizes,
                                       expert_f={"train_expert_f": "data",
                                                 "train_expert_whole": "whole"}.get(kind))
             else:
-                res[key] = serve_case(mesh, config(arch, reduced, changes), device, sizes,
+                res[key] = serve_case(mesh, cfg, device, sizes,
                                       expert_f=kind == "serve_expert_f")
         if backend == "nccl":
             res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -391,25 +835,30 @@ def _worker(rank, port, backend, cases, out):
     out[rank] = res
 
 
-def run_ranks(cases, backend="gloo", timeout=TIMEOUT_S):
+def run_ranks(cases, backend="gloo", timeout=TIMEOUT_S, shape=(2, 2)):
     """``cases`` (``(key, kind, arch, reduced, changes, sizes)``, kind
     ``serve``, ``serve_expert_f`` (the experts' F dim over 'data'), ``train``,
     ``train_expert_f``, ``train_expert_whole`` (the experts' F dim whole),
-    ``mixer``, ``slab_sum``, ``compressed_psum`` (sizes: ``(n,)``) or
-    ``hint``) on a 2x2 mesh of four spawned ranks in a ``backend`` group
-    (``nccl``: rank r on ``cuda:r``).  Returns
+    ``mixer``, ``slab_sum``, ``compressed_psum`` (sizes: ``(n,)``), ``hint``,
+    the checkpoint's ``remesh`` (one step, then (a) to (e) of
+    :func:`remesh_case`), ``train_remesh`` (two steps, (a) and (b)),
+    ``boxes``, ``elastic_tree`` (sizes: the directory) or
+    ``from_reference`` (sizes: :func:`from_reference_case`'s ``args``)) on a
+    mesh of ``shape`` (two dims, ('data', 'model')) over as many spawned
+    ranks in a ``backend`` group (``nccl``: rank r on ``cuda:r``).  Returns
     ``({rank: results}, hung ranks)``; ranks still running after
     ``timeout`` seconds are killed."""
     import torch.multiprocessing as mp
 
+    world = math.prod(shape)
     ctx = mp.get_context("spawn")
     with ctx.Manager() as manager:
         out = manager.dict()
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        procs = [ctx.Process(target=_worker, args=(r, port, backend, cases, out))
-                 for r in range(4)]
+        procs = [ctx.Process(target=_worker, args=(r, port, backend, cases, out, shape))
+                 for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
@@ -420,7 +869,7 @@ def run_ranks(cases, backend="gloo", timeout=TIMEOUT_S):
             if p.is_alive():
                 p.kill()
                 p.join()
-        return {r: dict(out[r]) for r in range(4) if r in out}, hung
+        return {r: dict(out[r]) for r in range(world) if r in out}, hung
 
 
 CASES = ([("hint", "hint", None, True, {}, None), ("slab_sum", "slab_sum", None, True, {}, None),
@@ -434,7 +883,10 @@ CASES = ([("hint", "hint", None, True, {}, None), ("slab_sum", "slab_sum", None,
          + [(f"train_expert_f/{arch}/{e}", "train_expert_f", arch, True, {"n_experts": e},
              TRAIN_SIZES) for arch, e in TRAIN_EXPERT_F]
          + [(f"mixer/{arch}/{e}", "mixer", arch, True, {"n_experts": e}, TRAIN_SIZES)
-            for arch, e in MIXER])
+            for arch, e in MIXER]
+         + [("boxes", "boxes", None, True, {}, None)]
+         + [(f"remesh/{arch}/{e}", "remesh", arch, True, {"n_experts": e}, TRAIN_SIZES)
+            for arch, e in TRAIN])
 
 
 @pytest.fixture(scope="module")
@@ -541,3 +993,101 @@ def test_compressed_psum_over_the_group_matches_numpy(ranks):
     for res in ranks.values():
         r = res["compressed_psum"]
         assert r["equal"] and r["n"] == 257, r
+
+
+def test_checkpoint_regions_follow_dtensor_chunking(ranks):
+    """The checkpoint's shard regions are DTensor's own chunks on uneven
+    leaves; a group's save of such leaves is one process's save byte for
+    byte, and restores onto other uneven placements."""
+    for res in ranks.values():
+        r = res["boxes"]
+        assert all(r["boxes"]) and r["same_bytes"] and r["restored"], r
+
+
+@pytest.mark.parametrize("arch,n_experts", TRAIN)
+def test_sharded_checkpoint_restores_bit_exact_on_the_same_placements(ranks, arch, n_experts):
+    """(a): every local shard and the next step bit for bit."""
+    for res in ranks.values():
+        r = res[f"remesh/{arch}/{n_experts}"]
+        assert r["same_layouts"] and r["same_shards_equal"], r
+        assert r["next_step_equal"], r
+
+
+@pytest.mark.parametrize("arch,n_experts", TRAIN)
+def test_sharded_checkpoint_restores_onto_other_meshes(ranks, arch, n_experts):
+    """(b): on (4, 1) by ``shardings``, on (1, 4) by a meta template, and the
+    2x2 restore: one step each within TOL of the unsharded continuation."""
+    for res in ranks.values():
+        r = res[f"remesh/{arch}/{n_experts}"]
+        assert sorted(r["continuations"]) == ["1x4", "2x2", "4x1"], r
+        for name, c in r["continuations"].items():
+            assert c["loss_err"] <= TOL and c["grad_rel_err"] <= TOL, (name, c)
+            assert c.get("on_mesh", True), (name, c)
+            assert not any(c["tokens_routed_otherwise"]), (name, c)
+
+
+@pytest.mark.parametrize("arch,n_experts", TRAIN)
+def test_sharded_checkpoint_is_the_unsharded_save(ranks, arch, n_experts):
+    """(c): the group's directory is the unsharded ``save_pytree`` of the
+    same values, byte for byte; each rank copied only its regions, every
+    byte of the state once over the group."""
+    rs = [res[f"remesh/{arch}/{n_experts}"] for res in ranks.values()]
+    for r in rs:
+        assert r["same_bytes"], r
+        assert r["snapshot_bytes"] <= r["local_bytes"] < r["logical_bytes"], r
+    assert sum(r["snapshot_bytes"] for r in rs) == rs[0]["logical_bytes"]
+
+
+@pytest.mark.parametrize("arch,n_experts", TRAIN)
+def test_sharded_fault_tolerant_loop_resumes_bit_exact(ranks, arch, n_experts):
+    """(d): a failure before the second step restores the first step's
+    checkpoint on every rank and ends on the unbroken run's shards."""
+    for res in ranks.values():
+        r = res[f"remesh/{arch}/{n_experts}"]["loop"]
+        assert r["calls"] == [0, 1, 1] and r["step"] == 2, r
+        assert r["equal"], r
+
+
+@pytest.mark.parametrize("arch,n_experts", TRAIN)
+def test_sharded_save_with_a_failed_rank_is_never_committed(ranks, arch, n_experts):
+    """(e): rank 1's writer raises; ``wait()`` raises on every rank, the
+    newest step stays the one before, and only the staged directory is left."""
+    for res in ranks.values():
+        after = res[f"remesh/{arch}/{n_experts}"]["failed_saves"]["rank1_write"]
+        assert after["raised"] is not None, after
+        assert after["latest"] == 1, after
+        staged = [n for n in after["names"] if ".tmp." in n]
+        assert [n for n in after["names"] if n.startswith("step_") and ".tmp." not in n] == \
+            ["step_00000001"], after
+        assert len(staged) == 1 and staged[0].startswith("step_00000002.tmp."), after
+
+
+@pytest.mark.parametrize("arch,n_experts", TRAIN)
+def test_sharded_save_whose_commit_fails_on_rank_0_is_never_committed(ranks, arch, n_experts):
+    """(e): rank 0's manifest write raises after every rank's regions are
+    on disk; ``wait()`` raises on every rank at once (the other ranks would
+    otherwise poll for the commit until the 1,800 s ``TIMEOUT_S``), the
+    newest step stays the one before, and only staged directories are left."""
+    from repro_torch.ckpt import checkpoint
+
+    for res in ranks.values():
+        after = res[f"remesh/{arch}/{n_experts}"]["failed_saves"]["rank0_commit"]
+        assert after["raised"] is not None and after["wait_s"] < 60 < checkpoint.TIMEOUT_S, after
+        assert after["latest"] == 1, after
+        assert [n for n in after["names"] if n.startswith("step_") and ".tmp." not in n] == \
+            ["step_00000001"], after
+        assert [n.split(".tmp.")[0] for n in after["names"] if ".tmp." in n] == \
+            ["step_00000002", "step_00000003"], after
+
+
+@pytest.mark.parametrize("arch,n_experts", [(a, e) for a, e in TRAIN if a == "qwen3-moe-30b-a3b"])
+def test_a_restore_with_swapped_layers_routes_tokens_otherwise(ranks, arch, n_experts):
+    """The control of (b)'s routing count: a plain restore with layers 0
+    and 1's routers swapped sends most tokens of every routing call to
+    other experts than the 2x2 step did, where a sound restore sends none."""
+    for res in ranks.values():
+        r = res[f"remesh/{arch}/{n_experts}"]
+        counts = r["swapped_routers_routed_otherwise"]
+        tokens = TRAIN_SIZES[0] * TRAIN_SIZES[1] // TRAIN_SIZES[2]  # a microbatch's
+        assert len(counts) == len(r["continuations"]["2x2"]["tokens_routed_otherwise"]), r
+        assert min(counts) > tokens // 2, counts
