@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime import spans
 from .spmd import col_linear, row_linear
 
 __all__ = [
@@ -97,10 +98,13 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32 (the reference's
-    ``preferred_element_type=float32`` product)."""
-    if x.dtype == w.dtype == torch.float32:
-        return linear(x, w)
-    return linear(x.float(), w.float())
+    ``preferred_element_type=float32`` product), under the span
+    ``repro_torch.dot_f32``."""
+    with spans.span("repro_torch.dot_f32") as sp:
+        x, w = sp.inputs(x, w)
+        if x.dtype == w.dtype == torch.float32:
+            return sp.output(linear(x, w))
+        return sp.output(linear(x.float(), w.float()))
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -110,11 +114,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 
 
 def make_rope_cache(positions: torch.Tensor, d_head: int, theta: float):
-    """cos/sin tables ``(..., S, d_head // 2)`` for positions ``(..., S)``."""
+    """cos/sin tables ``(..., S, d_head // 2)`` for positions ``(..., S)``.
+
+    θ is copied to the device from the host's memory, which waits for the
+    device to finish the work queued before it (the span
+    ``repro_torch.sync.rope_theta``)."""
     half = d_head // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
-                      exponent)
+    with spans.sync("rope_theta"):
+        base = torch.tensor(theta, dtype=torch.float32, device=positions.device)
+    freqs = torch.pow(base, exponent)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -210,8 +219,15 @@ def chunked_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024) -> 
     (``qpos >= kpos``), so cross-attention (``causal=False``) shares it.
     Each KV step runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint``): its ``(B, H, S, kc)`` probabilities are recomputed
-    in the backward pass, not kept for every step.
+    in the backward pass, not kept for every step.  Runs under the span
+    ``repro_torch.attention``.
     """
+    with spans.span("repro_torch.attention") as sp:
+        q, k, v = sp.inputs(q, k, v)
+        return sp.output(_chunked_attention(q, k, v, causal, kv_chunk))
+
+
+def _chunked_attention(q, k, v, causal: bool, kv_chunk: int) -> torch.Tensor:
     b, h, s, dh = q.shape
     hkv, t = k.shape[1], k.shape[2]
     kv_chunk = min(kv_chunk, t)

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..runtime import spans
 from ..runtime.axes import hint
 from . import transformer as tf
 from .layers import dot_f32
@@ -85,8 +86,15 @@ def chunked_ce_loss(h, w_head, labels, chunk: int) -> torch.Tensor:
     Each chunk's head product, logsumexp and gold logit run under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` on its scan
     body): the backward pass recomputes a chunk's logits, so at most one
-    chunk's logits are alive in either pass.
+    chunk's logits are alive in either pass.  Runs under the span
+    ``repro_torch.loss``.
     """
+    with spans.span("repro_torch.loss") as sp:
+        h, w_head = sp.inputs(h, w_head)
+        return sp.output(_chunked_ce_loss(h, w_head, labels, chunk))
+
+
+def _chunked_ce_loss(h, w_head, labels, chunk: int) -> torch.Tensor:
     b, s, _ = h.shape
     chunk = min(chunk, s)
     if s % chunk:

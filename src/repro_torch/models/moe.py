@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import moe_mlp
+from ..runtime import spans
 from ..runtime.axes import get_activation_sharding
 from .layers import dot_f32, init_linear, linear, normal, swiglu
 from .spmd import (col_linear, grad_layout, is_dtensor, local_index, placements, reduce_rows,
@@ -195,20 +196,41 @@ def _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts: int, capac
     ``sum_slab`` set: the weights hold a slice of the F dim, and
     ``sum_slab`` sums the partial output slabs over the ranks holding the
     other slices.  ``own`` set: ``weights`` are those of tokens ``own ..
-    own + len(weights)`` only, whose outputs alone are combined."""
-    t, top_k = ids.shape
-    d = x.shape[1]
+    own + len(weights)`` only, whose outputs alone are combined.  Each of
+    the three runs under its span (``repro_torch.moe.dispatch``,
+    ``.experts``, ``.combine``); the dispatch counts the pairs it kept
+    (``moe.kept_pairs``) and the slots it filled them into (``moe.slots``)."""
+    top_k = ids.shape[1]
     window = None if e0 is None else (e0, w_gate.shape[0])
-    slab, rows, keep = dispatch(x, ids, n_experts, capacity, n_shards, window)
-    out_slab = experts(slab, w_gate, w_up, w_down)
-    if sum_slab is not None:
-        out_slab = sum_slab(out_slab)
+    with spans.span("repro_torch.moe.dispatch") as sp:
+        (x,) = sp.inputs(x)
+        slab, rows, keep = dispatch(x, ids, n_experts, capacity, n_shards, window)
+        slab = sp.output(slab)
+        if spans.is_on():
+            spans.count("moe.kept_pairs", keep.sum())
+            spans.count("moe.slots", slab.shape[0] * capacity)
+    with spans.span("repro_torch.moe.experts") as sp:
+        slab, w_gate, w_up, w_down = sp.inputs(slab, w_gate, w_up, w_down)
+        out_slab = experts(slab, w_gate, w_up, w_down)
+        if sum_slab is not None:
+            out_slab = sum_slab(out_slab)
+        out_slab = sp.output(out_slab)
+    with spans.span("repro_torch.moe.combine") as sp:
+        out_slab, weights = sp.inputs(out_slab, weights)
+        return sp.output(_combine(out_slab, rows, keep, weights, capacity, top_k, own))
+
+
+def _combine(out_slab, rows, keep, weights, capacity: int, top_k: int, own):
+    """Each kept pair's row of ``out_slab`` gathered back, weighted by its
+    router weight and summed over the token's pairs, in float32."""
+    t = rows.shape[0] // top_k
+    d = out_slab.shape[-1]
 
     # A dropped pair reads a slab row of its own (its pair index; the value is
     # masked out), not one shared row: in the backward pass the gather's
     # index-add would otherwise sum every dropped pair into one row, in turn.
-    n_rows = slab.shape[0] * capacity
-    pairs = torch.arange(t * top_k, device=x.device)
+    n_rows = out_slab.shape[0] * capacity
+    pairs = torch.arange(t * top_k, device=rows.device)
     if own is not None:
         t = weights.shape[0]
         pairs = pairs[own * top_k : (own + t) * top_k]
@@ -333,8 +355,11 @@ def moe_ffn(
     only)."""
     t, d = x.shape
     x = grad_layout(x, "batch", None)
-    probs, weights, ids = route(x, params["router"], top_k, norm_topk)
-    aux = router_load_balancing_loss(probs, ids, n_experts)
+    with spans.span("repro_torch.moe.route") as sp:
+        xr, router = sp.inputs(x, params["router"])
+        probs, weights, ids = route(xr, router, top_k, norm_topk)
+        aux = router_load_balancing_loss(probs, ids, n_experts)
+        weights, aux = sp.output(weights, aux)
     ns = n_dispatch_shards
     if ns < 1 or t % ns or capacity % ns or capacity // ns < top_k:
         ns = 1  # decode-sized batches: slices would be thinner than top_k

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention
+from ..runtime import spans
 from . import mamba2 as m2
 from .layers import (
     apply_mrope,
@@ -708,10 +709,16 @@ def _encoder_layer(blk, cfg, h, positions):
 
 def _remat(cfg, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``: its
-    activations are recomputed in the backward pass, not kept."""
+    activations are recomputed in the backward pass, not kept.  The block
+    runs under the span ``repro_torch.block``, in the recompute too."""
     if cfg.remat:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(_block, fn, *args, use_reentrant=False)
+    return _block(fn, *args)
+
+
+def _block(fn, *args):
+    with spans.span(spans.BLOCK):
+        return fn(*args)
 
 
 def _decoder_layer(lp, cfg, h, positions, positions3, ffn, cap):

@@ -1,6 +1,6 @@
 """Runtime of the port: typed EP-SpMV requests, LM serving steps, the train
-step, the sharding rules and activation hints of a mesh, and the
-fault-tolerance pieces replicated serving and training stand on.
+step and its spans (``spans``), the sharding rules and activation hints of a
+mesh, and the fault-tolerance pieces replicated serving and training stand on.
 
 ``fault`` is imported eagerly (standard library only); the request, serving
 and training names load their modules on first use (PEP 562), so that

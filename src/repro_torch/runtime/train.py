@@ -12,7 +12,11 @@
     gradients would cost another 4 bytes a parameter;
   * an optional ``grad_transform`` (e.g. int8 compression with error
     feedback) runs before the optimizer;
-  * AdamW updates the masters and moments in place.
+  * AdamW updates the masters and moments in place;
+  * the step and its parts run under the spans of
+    :mod:`~repro_torch.runtime.spans` (``repro_torch.train_step`` and its
+    ``.forward``, ``.backward``, ``.grad_scale`` and ``.optimizer``), which
+    record only while tracing is on.
 
 The step returns the state it was given, advanced: the same weight and
 moment tensors, a new ``step``.  The last step's gradients stay in the
@@ -28,6 +32,7 @@ import torch
 from ..models.params import Params, tree_map
 from ..models.spmd import full, is_dtensor, place, replicated_like
 from ..optim import AdamWConfig, adamw_init, adamw_update
+from . import spans
 
 __all__ = ["TrainState", "make_train_step", "init_train_state", "split_microbatches"]
 
@@ -85,6 +90,10 @@ def make_train_step(
     microbatch, as the reference's."""
 
     def train_step(state: TrainState, batch: dict):
+        with spans.step(model.device):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: dict):
         params = state.params
         masters = list(params.parameters())
         for p in masters:
@@ -94,7 +103,8 @@ def make_train_step(
 
         def add(loss):
             nonlocal acc
-            loss.backward()
+            with spans.span("repro_torch.train_step.backward", "backward"):
+                loss.backward()
             if in_grad:
                 return
             g = {p: torch.zeros_like(p, dtype=accum_dtype) if p.grad is None
@@ -104,7 +114,8 @@ def make_train_step(
                 p.grad = None
 
         if num_microbatches == 1:
-            loss, metrics = model.loss_fn(params, batch)
+            with spans.span("repro_torch.train_step.forward"):
+                loss, metrics = model.loss_fn(params, batch)
             add(loss)
             loss = full(loss.detach())
             metrics = {k: full(v.detach()) for k, v in metrics.items()}
@@ -112,27 +123,31 @@ def make_train_step(
             mbs = split_microbatches(batch, num_microbatches)
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(num_microbatches):
-                mb_loss, _ = model.loss_fn(params, {k: v[i] for k, v in mbs.items()})
+                with spans.span("repro_torch.train_step.forward"):
+                    mb_loss, _ = model.loss_fn(params, {k: v[i] for k, v in mbs.items()})
                 add(mb_loss)
                 loss = loss + full(mb_loss.detach())
             inv = 1.0 / num_microbatches
             loss = loss * inv
             metrics = {}
 
-        if in_grad:
-            for p in masters:
-                if p.grad is None:  # a leaf the loss does not read: a zero gradient
-                    p.grad = torch.zeros_like(p)
-            acc = {p: p.grad for p in masters}
-        if num_microbatches > 1:
-            for g in acc.values():
-                scalar = torch.tensor(inv, dtype=g.dtype, device=g.device if is_dtensor(g) else "cpu")
-                g.mul_(replicated_like(g, scalar))
+        with spans.span("repro_torch.train_step.grad_scale", "step"):
+            if in_grad:
+                for p in masters:
+                    if p.grad is None:  # a leaf the loss does not read: a zero gradient
+                        p.grad = torch.zeros_like(p)
+                acc = {p: p.grad for p in masters}
+            if num_microbatches > 1:
+                for g in acc.values():
+                    scalar = torch.tensor(inv, dtype=g.dtype,
+                                          device=g.device if is_dtensor(g) else "cpu")
+                    g.mul_(replicated_like(g, scalar))
         grads = tree_map(acc.__getitem__, params.graph_tree())
         if grad_transform is not None:
             grads = grad_transform(grads)
 
-        _, new_opt, stats = adamw_update(opt_cfg, grads, state.opt_state, params)
+        with spans.span("repro_torch.train_step.optimizer", "step"):
+            _, new_opt, stats = adamw_update(opt_cfg, grads, state.opt_state, params)
         new_state = TrainState(params=params, opt_state=new_opt, step=state.step + 1)
         out = {"loss": loss, **stats}
         out.update({k: v for k, v in metrics.items() if k != "loss"})
