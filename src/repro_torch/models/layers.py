@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..runtime import spans
-from .spmd import col_linear, row_linear
+from .spmd import col_linear, is_dtensor, row_linear
 
 __all__ = [
     "apply_mrope",
@@ -99,12 +99,89 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32 (the reference's
     ``preferred_element_type=float32`` product), under the span
-    ``repro_torch.dot_f32``."""
+    ``repro_torch.dot_f32``.
+
+    Two bf16 plain tensors, ``x (..., K)`` under a ``(K, N)`` weight or
+    ``(E, M, K)`` slabs under ``(E, K, N)`` weights, take :class:`_DotF32`:
+    on a CUDA device the bf16 operands go to the tensor cores with float32
+    sums and output (``torch.mm``/``torch.bmm`` with ``out_dtype``), which
+    computes the upcast product's sums, since a product of two bf16 values
+    is exact in float32; elsewhere the upcast product itself.  Only the
+    bf16 operands are saved for the backward pass.  A float32 operand takes
+    the float32 product (the reference promotes it), and so do DTensors,
+    whose ops have no sharding rule for the ``out_dtype`` products.  Each
+    product counts one ``dot_f32.tensor_core`` or ``dot_f32.float32``."""
     with spans.span("repro_torch.dot_f32") as sp:
         x, w = sp.inputs(x, w)
+        if _bf16_pair(x, w):
+            spans.count("dot_f32.tensor_core", 1)
+            return sp.output(_DotF32.apply(x, w))
+        spans.count("dot_f32.float32", 1)
         if x.dtype == w.dtype == torch.float32:
             return sp.output(linear(x, w))
         return sp.output(linear(x.float(), w.float()))
+
+
+def _bf16_pair(x, w) -> bool:
+    if not (x.dtype == w.dtype == torch.bfloat16) or is_dtensor(x) or is_dtensor(w):
+        return False
+    return (w.dim() == 2 and x.dim() >= 2) or (w.dim() == x.dim() == 3)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
+    """``a @ b`` (2-D, or batched 3-D) of bf16 operands with float32 sums
+    and output, added in place to the float32 ``acc`` when given: on the
+    tensor cores on a CUDA device, else through float32 copies."""
+    if a.device.type == "cuda":
+        if acc is None:
+            return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=torch.float32)
+        add = torch.addmm if a.dim() == 2 else torch.baddbmm
+        return add(acc, a, b, out_dtype=torch.float32, out=acc)
+    p = a.float() @ b.float()
+    return p if acc is None else acc.add_(p)
+
+
+def _split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A float32 ``g`` as two bf16 terms, ``g_hi = bf16(g)`` and ``g_lo =
+    bf16(g - g_hi)``: their sum holds ~16 of ``g``'s 24 bits."""
+    hi = g.to(torch.bfloat16)
+    lo = torch.empty_like(hi)
+    torch.sub(g, hi, out=lo)  # the difference is exact in float32, rounded once on write
+    return hi, lo
+
+
+class _DotF32(torch.autograd.Function):
+    """:func:`dot_f32` of two bf16 operands (see there).
+
+    The backward pass splits the incoming float32 gradient in two bf16 terms
+    (:func:`_split_bf16`), so that its products run on the tensor cores too,
+    each as two products summed in float32.  One bf16 term would round the
+    gradient to 8 bits, below the float32 product of the reference; two
+    keep ~16, and ``dx`` and ``dw`` are rounded to bf16 (8 bits) as the
+    upcast product's are."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if w.dim() == 2:
+            return _mm_f32(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[-1])
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        shape = x.shape
+        if w.dim() == 2:  # the forward pass's flattened rows
+            x, g = x.reshape(-1, shape[-1]), g.reshape(-1, w.shape[-1])
+        hi, lo = _split_bf16(g)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.transpose(-1, -2)
+            dx = _mm_f32(lo, wt, _mm_f32(hi, wt)).to(x.dtype).reshape(shape)
+        if ctx.needs_input_grad[1]:
+            xt = x.transpose(-1, -2)
+            dw = _mm_f32(xt, lo, _mm_f32(xt, hi)).to(w.dtype)
+        return dx, dw
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -170,10 +247,12 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections, theta: floa
 
 
 def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
-    """SwiGLU feed-forward: gate and up in float32, ``h`` and the down
-    product in the activation type.  Leading axes batch, so the training
-    path runs every expert at once over ``(E, C, D)`` slabs and ``(E, D, F)``
-    weights.  On a mesh the products are :func:`~repro_torch.models.spmd.col_linear`
+    """SwiGLU feed-forward: gate and up with float32 sums and output
+    (:func:`dot_f32`: bf16 operands on the tensor cores of a CUDA device,
+    float32 operands on its CUDA cores), ``h`` and the down product in the
+    activation type.  Leading axes batch, so the training path runs every
+    expert at once over ``(E, C, D)`` slabs and ``(E, D, F)`` weights, one
+    batched product each.  On a mesh the products are :func:`~repro_torch.models.spmd.col_linear`
     and ``row_linear``: where the weights stay on their shards, ``h`` keeps
     their F split and the down product's partial sums are reduced."""
     gate, up = col_linear(x, (w_gate, w_up), dot_f32)

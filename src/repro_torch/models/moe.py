@@ -18,10 +18,13 @@ The MoE FFN:
      :func:`repro_torch.kernels.moe_mlp` when serving, through
      :func:`~repro_torch.models.layers.swiglu` batched over the experts
      when training (``train=True``): the reference's three ``einsum``
-     products (``src/repro/models/moe.py:269-272``; gate and up in float32,
-     ``silu(gate) * up`` and the down product in the activation type) in
-     differentiable PyTorch, as the reference trains through them and not
-     through its kernel;
+     products (``src/repro/models/moe.py:269-272``; gate and up with
+     float32 sums and output, through :func:`~repro_torch.models.layers.dot_f32`,
+     whose bf16 operands run on the tensor cores of a CUDA device and whose
+     backward pass splits the float32 gradient into two bf16 terms so that
+     its products run there too; ``silu(gate) * up`` and the down product
+     in the activation type) in differentiable PyTorch, as the reference
+     trains through them and not through its kernel;
   5. each kept pair's output gathered back and combined with its router
      weight in float32, plus the shared experts under their sigmoid gate.
 

@@ -667,3 +667,98 @@ def test_sharded_prefill_on_card_matches_unsharded(host_mesh, no_tf32, arch):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert runs["sharded"][1] == runs["plain"][1]
     assert runs["plain"][1]["flash_attention"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# dot_f32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at each value of ``v`` (8 significant bits)."""
+    exp = torch.frexp(v.float()).exponent
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), exp - 8)
+
+
+@pytest.mark.parametrize("xs,ws", [((2048, 2048), (2048, 151936)),
+                                   ((128, 640, 2048), (128, 2048, 768))], ids=["head", "slab"])
+def test_dot_f32_tensor_cores_match_float32_product(cuda_device, no_tf32, xs, ws):
+    """At the head's chunk and the experts' slab shapes, the bf16 product
+    with float32 sums agrees with the float32 product of the same values:
+    each output element within 1e-5 of its ``sum |x w|`` (the sums are
+    taken in another order).  Its gradients agree with autograd through the
+    float32 product within one bf16 ulp, beyond the split gradient's own
+    error (2^-16 of ``sum |g w|``, ``sum |x g|``)."""
+    from repro_torch.models.layers import dot_f32, linear
+
+    x = _randn(xs, torch.bfloat16, cuda_device, 0).requires_grad_()
+    w = _randn(ws, torch.bfloat16, cuda_device, 1, scale=ws[-2] ** -0.5).requires_grad_()
+    g = _randn((*xs[:-1], ws[-1]), torch.float32, cuda_device, 2, scale=1e-4)
+    out = dot_f32(x, w)
+    out.backward(g)
+    dx, dw = x.grad, w.grad
+    x.grad = w.grad = None
+    want = linear(x.float(), w.float())
+    want.backward(g)
+    with torch.no_grad():
+        assert out.dtype == torch.float32
+        scale = linear(x.float().abs(), w.float().abs())
+        assert bool(((out - want).abs() <= 1e-5 * scale).all())
+        del out, want, scale
+        wt, xt = w.float().abs().transpose(-1, -2), x.float().abs().transpose(-1, -2)
+        dx_scale, dw_scale = g.abs() @ wt, xt @ g.abs()
+        for got, ref, err in ((dx, x.grad, dx_scale), (dw, w.grad, dw_scale)):
+            assert got.dtype == torch.bfloat16
+            diff = (got.float() - ref.float()).abs()
+            assert bool((diff <= _bf16_ulp(ref) + 2.0 ** -16 * err).all())
+
+
+def test_dot_f32_train_step_launches_no_float32_gemm(cuda_device):
+    """A profiled train step of a 1-layer bf16 cut: inside every
+    ``repro_torch.dot_f32`` range whose operands were bf16 (it holds the
+    ``_DotF32`` function), and in that function's backward node, no float32
+    GEMM runs (no ``sgemm`` and no ``gemm_f32f32`` kernel); a range of
+    float32 operands (the router's) does run one, so the names are read."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b", reduced=True), n_layers=1,
+                              compute_dtype="bfloat16")
+    model = Model(cfg, device=cuda_device)
+    opt = AdamWConfig()
+    state = init_train_state(model, opt, 0)
+    step = make_train_step(model, opt, num_microbatches=2)
+    batch = {k: v.to(cuda_device) for k, v in _train_batch(cfg, np.random.default_rng(0)).items()}
+    state, _ = step(state, batch)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+
+    def kernels(evt):
+        names = [k.name for k in evt.kernels]
+        for c in evt.cpu_children:
+            names += kernels(c)
+        return names
+
+    def holds(evt, name):
+        return any(c.name == name or holds(c, name) for c in evt.cpu_children)
+
+    f32_gemm = re.compile(r"sgemm|gemm_f32f32|f32f32_f32f32")
+    bf16, f32 = [], []
+    for evt in prof.events():
+        if evt.name == "repro_torch.dot_f32":
+            (bf16 if holds(evt, "_DotF32") else f32).append(kernels(evt))
+        elif evt.name.endswith("_DotF32Backward"):
+            bf16.append(kernels(evt))
+    # 1 layer x 2 microbatches: gate and up (forward, remat's recompute, backward),
+    # the head's chunks; the router in float32.
+    assert len(bf16) >= 3 * 2 * 2 and len(f32) >= 2
+    assert all(ks for ks in bf16)
+    bad = sorted({k for ks in bf16 for k in ks if f32_gemm.search(k)})
+    assert not bad, bad
+    assert any(f32_gemm.search(k) for ks in f32 for k in ks)
