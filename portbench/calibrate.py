@@ -10,8 +10,9 @@ program and prints the numbers the check compares.  For the seeds of
 next precision below the stated one (float8 products, forward and backward,
 where bf16 is stated), put in the program's place.  For the
 seeds of ``--faults`` it prints the numbers of each fault the cell can have,
-planted in the program (:mod:`portbench.faults`).  One JSON line each; the
-benchmark's own runs never run this.
+planted in the program (:mod:`portbench.faults`).  A cell on a mesh starts
+its ranks once for all seeds.  One JSON line each; the benchmark's own runs
+never run this.
 """
 import time
 
@@ -40,27 +41,20 @@ def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def train_cell(conf, mix, seeds, control, faults_at, device) -> None:
+def _readings(program, reference, seeds, control, faults_at, fault_names) -> None:
+    """One line a seed: the program's numbers (``program(seed, None)``)
+    against the reference (``reference(seed, prec)``), the control's, and
+    one line for each fault planted (``program(seed, fault)``)."""
     import torch
 
-    from portbench import faults
     from portbench.entries import train as tr
-
-    def program(seed):
-        job = tr.Job(conf, mix, device)
-        job.load(seed)
-        got = job.checked(seed)
-        job.free()
-        del job
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        return got
 
     for seed in sorted(set(seeds) | set(faults_at)):
         t = time.perf_counter()
-        got = program(seed) if seed in seeds else None
+        got = program(seed, None) if seed in seeds else None
+        bad = {f: program(seed, f) for f in fault_names} if seed in faults_at else {}
         t_prog = time.perf_counter()
-        want = tr.reference(conf, mix, seed, device)
+        want = reference(seed, tr.REF)
         t_ref = time.perf_counter()
         line = {"seed": seed, "run": "sound", "program_s": t_prog - t, "check_s": t_ref - t_prog,
                 "losses": want["loss"]}
@@ -68,17 +62,64 @@ def train_cell(conf, mix, seeds, control, faults_at, device) -> None:
             line["program"] = tr.compare(got, want)
             line["program_losses"] = got["loss"]
         if seed in control:
-            lowp = tr.reference(conf, mix, seed, device, tr.CONTROL)
+            lowp = reference(seed, tr.CONTROL)
             line["control"] = tr.compare(lowp, want)
             line["control_losses"] = lowp["loss"]
+            line["control_s"] = time.perf_counter() - t_ref
         _emit(line)
+        for fault, b in bad.items():
+            _emit({"seed": seed, "run": fault, "program": tr.compare(b, want)})
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-        if seed in faults_at:
-            for fault in faults.FAULTS:
-                with faults.planted(fault):
-                    bad = program(seed)
-                _emit({"seed": seed, "run": fault, "program": tr.compare(bad, want)})
+
+
+def train_cell(conf, mix, seeds, control, faults_at, device) -> None:
+    import torch
+
+    from portbench import faults
+    from portbench.entries import train as tr
+
+    def program(seed, fault):
+        with faults.planted(fault):
+            job = tr.Job(conf, mix, device)
+            job.load(seed)
+            got = job.checked(seed)
+            job.free()
+            del job
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return got
+
+    _readings(program, lambda seed, prec: tr.reference(conf, mix, seed, device, prec),
+              seeds, control, faults_at, faults.of(mix))
+
+
+def mesh_cell(conf, mix, seeds, control, faults_at, device) -> None:
+    """As :func:`train_cell`, for a mix on a mesh: the ranks start once and
+    run the program for every seed and fault first (``program_s`` is then
+    that seed's share), and end before the reference runs on their cards."""
+    from portbench import faults
+    from portbench.entries import train_mesh as tm
+
+    group = tm.Group(conf, mix, device)
+    ok, got, took = False, {}, {}
+    try:
+        for seed in sorted(set(seeds) | set(faults_at)):
+            t = time.perf_counter()
+            for fault in ([None] if seed in seeds else []) + (
+                    list(faults.of(mix)) if seed in faults_at else []):
+                group.call("plant", fault)
+                group.call("load", seed)
+                got[seed, fault] = group.call("checked", seed)
+                group.call("free")
+            took[seed] = time.perf_counter() - t
+        ok = True
+    finally:
+        group.close(ok)
+    _emit({"program_s": took})
+    _readings(lambda seed, fault: got[seed, fault],
+              lambda seed, prec: tm.reference(conf, mix, seed, tm.devices(device, group.world), prec),
+              seeds, control, faults_at, faults.of(mix))
 
 
 def main(argv=None) -> int:
@@ -94,7 +135,8 @@ def main(argv=None) -> int:
     cell = spec.workload(args.workload)
     conf, mix = spec.config(cell["config"]), spec.traffic(cell["traffic"])
     seeds, control, faults_at = _seeds(args.seeds), _seeds(args.control), _seeds(args.faults)
-    train_cell(conf, mix, seeds, set(control), faults_at, "cuda")
+    (mesh_cell if "mesh" in mix else train_cell)(conf, mix, seeds, set(control), faults_at,
+                                                 "cuda")
     _emit({"done_s": time.perf_counter() - T0})
     return 0
 

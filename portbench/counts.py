@@ -22,9 +22,22 @@ def capacity(m, n_tokens: int) -> int:
     return ((cap + 127) // 128) * 128 if cap > 128 else ((cap + 7) // 8) * 8
 
 
-def train_least_s(m, batch: int, seq: int) -> float:
-    """A train step's least time: its products (the family's ``train_flops``)
-    over the bf16 rate, plus AdamW's 28 bytes a parameter (read master,
-    gradient, m, v; write master, m, v) over the memory rate."""
+def dispatch_shards(m, n_tokens: int, rows: int, ways: int) -> int:
+    """Runs a microbatch's routed pairs fall into (the port's rule): the
+    data-parallel degree ``ways`` where the ``rows`` and the ``n_tokens``
+    split into it and each run keeps at least ``top_k`` slots of an
+    expert's capacity, else one."""
+    cap = capacity(m, n_tokens)
+    if ways < 1 or rows % ways or n_tokens % ways or cap % ways or cap // ways < m.top_k:
+        return 1
+    return ways
+
+
+def train_least_s(m, batch: int, seq: int, chips: int = 1) -> float:
+    """A train step's least time on ``chips`` chips that share its work
+    evenly: its products (the family's ``train_flops``) over the bf16 rate,
+    plus AdamW's 28 bytes a parameter (read master, gradient, m, v; write
+    master, m, v) over the memory rate, each over the chips."""
     fam = spec.family(m.family)
-    return fam.train_flops(m, batch, seq) / BF16_FLOPS + 28 * fam.n_params(m) / HBM_BYTES_PER_S
+    return (fam.train_flops(m, batch, seq) / BF16_FLOPS
+            + 28 * fam.n_params(m) / HBM_BYTES_PER_S) / chips

@@ -21,29 +21,39 @@ def strict() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def to_f8(x: torch.Tensor, fmt: torch.dtype = torch.float8_e4m3fn) -> torch.Tensor:
-    """``x`` rounded to float8 ``fmt`` under one scale (its largest
-    magnitude to the format's largest), back in float32."""
+def _f8(x: torch.Tensor, fmt: torch.dtype = torch.float8_e4m3fn) -> tuple:
+    """``x`` in float8 ``fmt`` under one scale (its largest magnitude to the
+    format's largest): ``(float8 values, scale)``."""
     scale = x.abs().amax().clamp(min=1e-30) / F8_FORMATS[fmt]
-    return (x / scale).to(fmt).float() * scale
+    return (x / scale).to(fmt), scale
+
+
+def _up(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def to_f8(x: torch.Tensor, fmt: torch.dtype = torch.float8_e4m3fn) -> torch.Tensor:
+    """``x`` rounded to float8 ``fmt`` under one scale, back in float32."""
+    return _up(*_f8(x, fmt))
 
 
 class F8Product(torch.autograd.Function):
     """``a @ b`` in float8, forward and backward, as float8 training runs
     it: both operands in e4m3, and in the backward pass the incoming
     gradient in e5m2, multiplied by the saved e4m3 operands; every sum in
-    float32, one scale a tensor."""
+    float32, one scale a tensor.  The operands are saved in float8."""
 
     @staticmethod
     def forward(ctx, a, b):
-        qa, qb = to_f8(a), to_f8(b)
-        ctx.save_for_backward(qa, qb)
+        (a8, a_scale), (b8, b_scale) = _f8(a), _f8(b)
+        ctx.save_for_backward(a8, a_scale, b8, b_scale)
         ctx.shapes = a.shape, b.shape
-        return qa @ qb
+        return _up(a8, a_scale) @ _up(b8, b_scale)
 
     @staticmethod
     def backward(ctx, g):
-        qa, qb = ctx.saved_tensors
+        a8, a_scale, b8, b_scale = ctx.saved_tensors
+        qa, qb = _up(a8, a_scale), _up(b8, b_scale)
         qg = to_f8(g, torch.float8_e5m2)
         sa, sb = ctx.shapes
         return ((qg @ qb.transpose(-1, -2)).sum_to_size(sa),

@@ -8,7 +8,10 @@ RMSNorm; a float32 router, softmax over the experts, the top-k renormalised
 to sum to 1; each chosen expert's SwiGLU ``(silu(x Wg) * x Wu) Wd`` weighted
 and summed into the residual.  As the program does, each expert keeps at
 most ``capacity`` routed pairs, counted over the pairs in token-major,
-k-minor order, and drops the rest (the published model has no capacity).
+k-minor order, and drops the rest (the published model has no capacity);
+with ``shards`` dispatch shards (the program's data-parallel degree) the
+pairs fall into ``shards`` equal runs and each keeps ``capacity / shards``
+of an expert's pairs, counted in its own run.
 The training loss adds ``router_aux_loss_coef`` times the sum over layers of
 the Switch load-balancing loss ``E * sum_e f_e * mean_t p_e``.
 
@@ -121,7 +124,7 @@ def attention(q, k, v, prec: Prec) -> torch.Tensor:
     return torch.cat(outs, dim=1)
 
 
-def moe(x: torch.Tensor, w: dict, m, capacity: int, prec: Prec):
+def moe(x: torch.Tensor, w: dict, m, capacity: int, prec: Prec, shards: int = 1):
     """The routed experts of tokens ``x (T, D)``: ``(y (T, D), aux)``."""
     logits = x @ w["ffn", "moe", "router"]  # the router is float32
     probs = torch.softmax(logits, dim=-1)
@@ -129,8 +132,13 @@ def moe(x: torch.Tensor, w: dict, m, capacity: int, prec: Prec):
     top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     flat = ids.reshape(-1)
     one_hot = F.one_hot(flat, m.experts)
-    pos = (torch.cumsum(one_hot, dim=0) * one_hot).sum(dim=-1) - 1
-    keep = pos < capacity
+    if shards == 1:
+        pos = (torch.cumsum(one_hot, dim=0) * one_hot).sum(dim=-1) - 1
+    else:  # an expert's position among its pairs in the pair's own run
+        run = torch.arange(flat.numel(), device=x.device) // (flat.numel() // shards)
+        in_run = F.one_hot(flat * shards + run, m.experts * shards)
+        pos = (torch.cumsum(in_run, dim=0) * in_run).sum(dim=-1) - 1
+    keep = pos < capacity // shards
     y = torch.zeros_like(x)
     pair_w = top_w.reshape(-1)
     for e in range(m.experts):
@@ -148,8 +156,8 @@ def moe(x: torch.Tensor, w: dict, m, capacity: int, prec: Prec):
     return y, aux
 
 
-def layer(h: torch.Tensor, w: dict, m, capacity: int, prec: Prec):
-    """One decoder layer: ``(h, aux)``."""
+def layer(h: torch.Tensor, w: dict, m, capacity: int, prec: Prec, shards: int = 1):
+    """One decoder layer: ``(h, aux)``; ``shards``: the MoE's dispatch shards."""
     b, s, d = h.shape
     x = rms_norm(h, w["attn", "norm"], m.eps)
     q = prec.mm(x, w["attn", "wq"]).view(b, s, m.heads, m.head_dim)
@@ -159,7 +167,8 @@ def layer(h: torch.Tensor, w: dict, m, capacity: int, prec: Prec):
     k = rope(rms_norm(k, w["attn", "k_norm"], m.eps).transpose(1, 2), m.theta)
     o = attention(q, k, v.transpose(1, 2), prec).transpose(1, 2).reshape(b, s, m.heads * m.head_dim)
     h = h + prec.mm(o, w["attn", "wo"])
-    y, aux = moe(rms_norm(h, w["ffn", "norm"], m.eps).reshape(b * s, d), w, m, capacity, prec)
+    y, aux = moe(rms_norm(h, w["ffn", "norm"], m.eps).reshape(b * s, d), w, m, capacity, prec,
+                 shards)
     return h + y.view(b, s, d), aux
 
 

@@ -72,3 +72,11 @@ def test_every_metric_has_a_reader_and_every_cell_its_files():
         spec.traffic(w["traffic"])
         assert set(spec.limits(w["name"])["limits"])
         assert spec.per_layer(w) and [m for m in spec.end_to_end(w) if m["name"] != "setup_s"]
+
+
+def test_every_cell_of_a_metric_reports_the_metric_it_moves():
+    bench = spec.bench()
+    for m in bench["per_layer"]:
+        for name in m.get("workloads", ()):
+            assert m["moves"] in [e["name"] for e in spec.end_to_end(spec.workload(name))], (m, name)
+
