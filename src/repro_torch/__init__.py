@@ -9,3 +9,5 @@ first use.  Entry points run on the CUDA device unless the
 caller passes ``device="cpu"``, where every kernel runs its plain PyTorch
 twin.
 """
+
+from . import archs  # noqa: F401,E402  (registers the architectures the reference lacks)

@@ -65,6 +65,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
+from ..archs import PORT_ONLY
 from ..configs import SHAPES, ArchConfig, ShapeConfig, cells, get_config, param_count
 from ..kernels import _build
 from ..models import Model
@@ -496,9 +497,12 @@ def _write(rec, out_dir, arch, shape_name, mesh_name):
 
 def work_list() -> list[str]:
     """The reference's ``--all`` lines: each runnable cell on both meshes,
-    and a SKIP line for each skipped one."""
+    and a SKIP line for each skipped one (of the reference's archs: the
+    port's own, ``archs.PORT_ONLY``, have no cells there)."""
     lines = []
     for arch, shape, status in cells(include_skips=True):
+        if arch in PORT_ONLY:
+            continue
         for mp in ("", "--multi-pod"):
             if status == "run":
                 lines.append(f"--arch {arch} --shape {shape} {mp}".strip())

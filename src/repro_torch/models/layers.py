@@ -267,7 +267,8 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
 def _kv_step(qf, kb, vb, m_prev, l_prev, acc, k0: int, t: int, causal: bool, pad: bool):
     """One KV chunk of :func:`chunked_attention`: the running max ``m``, sum
     ``l`` and accumulator ``acc`` after keys ``k0 .. k0 + kc``.  ``qf`` is
-    ``(B, Hkv, G, S, Dh)`` float32, ``kb``/``vb`` ``(B, Hkv, kc, Dh)``."""
+    ``(B, Hkv, G, S, Dh)`` float32, ``kb`` ``(B, Hkv, kc, Dh)``, ``vb``
+    ``(B, Hkv, kc, Dv)``."""
     s_len, kc = qf.shape[3], kb.shape[2]
     sblk = (qf @ kb.float().unsqueeze(2).transpose(-1, -2)) * (1.0 / math.sqrt(qf.shape[-1]))
     kpos = k0 + torch.arange(kc, device=qf.device)
@@ -289,9 +290,11 @@ def _kv_step(qf, kb, vb, m_prev, l_prev, acc, k0: int, t: int, causal: bool, pad
 def chunked_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks; never builds the (S, T) scores.
 
-    q: ``(B, H, S, Dh)``; k, v: ``(B, Hkv, T, Dh)`` with ``Hkv | H`` (q head
-    h reads kv head ``h // (H // Hkv)``; ``Hkv = H`` is the reference's
-    head-repeated input).  Returns ``(B, H, S, Dh)`` in q's type.  The
+    q: ``(B, H, S, Dh)``; k: ``(B, Hkv, T, Dh)``, v: ``(B, Hkv, T, Dv)`` with
+    ``Hkv | H`` (q head h reads kv head ``h // (H // Hkv)``; ``Hkv = H`` is
+    the reference's head-repeated input); the scores are scaled by
+    ``Dh ** -0.5``, and ``Dv`` may differ from ``Dh`` (latent attention's
+    value heads are narrower).  Returns ``(B, H, S, Dv)`` in q's type.  The
     reference's arithmetic: scores, ``m``, ``l`` and ``acc`` in float32, ``p``
     rounded to V's type before the ``p v`` product, ``l`` clamped at 1e-20;
     a ragged T is padded and masked; causality by absolute offsets
@@ -317,12 +320,12 @@ def _chunked_attention(q, k, v, causal: bool, kv_chunk: int) -> torch.Tensor:
     qf = q.float().reshape(b, hkv, h // hkv, s, dh)
     m = torch.full(qf.shape[:-1], float("-inf"), device=q.device)
     l = torch.zeros(qf.shape[:-1], device=q.device)
-    acc = torch.zeros(qf.shape, device=q.device)
+    acc = torch.zeros((*qf.shape[:-1], v.shape[-1]), device=q.device)
     for k0 in range(0, t + pad, kv_chunk):
         m, l, acc = checkpoint(_kv_step, qf, k[:, :, k0:k0 + kv_chunk], v[:, :, k0:k0 + kv_chunk],
                                m, l, acc, k0, t, causal, bool(pad), use_reentrant=False)
     out = acc / l.clamp(min=1e-20)[..., None]
-    return out.reshape(b, h, s, dh).to(q.dtype)
+    return out.reshape(b, h, s, v.shape[-1]).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:

@@ -3,7 +3,11 @@
 The MoE FFN:
 
   1. router logits in float32 -> softmax -> top-k (weights, ids), weights
-     renormalised over the k (``norm_topk``);
+     renormalised over the k (``norm_topk``); or (DeepSeek-V3,
+     ``scoring="sigmoid"``) sigmoid scores, the top-k of the scores plus
+     the correction bias ``router_bias`` where the layer has one (the bias
+     picks the experts and gets no gradient), the unbiased scores at those
+     experts as the weights, renormalised and times ``routed_scale``;
   2. position of each routed pair within its expert, counted over the
      flattened ``(T * k)`` pairs, token-major and k-minor (the reference's
      one-hot running count, computed here by a stable sort of the pairs by
@@ -26,7 +30,13 @@ The MoE FFN:
      in the activation type) in differentiable PyTorch, as the reference
      trains through them and not through its kernel;
   5. each kept pair's output gathered back and combined with its router
-     weight in float32, plus the shared experts under their sigmoid gate.
+     weight in float32, plus the shared experts (span
+     ``repro_torch.moe.shared``) under their sigmoid gate where they have
+     one (``shared["gate"]``), added as they are where they have none.
+
+The aux loss is the Switch loss over the microbatch, or with ``seq_rows``
+DeepSeek-V3's sequence-wise balance loss over each packed row
+(:func:`sequence_balance_loss`).
 
 ``expert_perm`` (E,) maps a logical expert to the slab slot holding its
 weights, as in the reference.  On DTensors (a mesh profile installed, see
@@ -52,7 +62,7 @@ from .spmd import (col_linear, grad_layout, is_dtensor, local_index, placements,
                    row_linear, shard_map, slab_sum, whole)
 
 __all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "recorded_routing",
-           "route", "router_load_balancing_loss"]
+           "route", "router_load_balancing_loss", "sequence_balance_loss"]
 
 _routing: Optional[list] = None  # the active recorded_routing's list
 
@@ -72,7 +82,9 @@ def recorded_routing():
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
-    """cfg is a configs.base.MoESettings."""
+    """cfg is a configs.base.MoESettings (or the port's RoutedMoESettings,
+    whose correction bias starts at zero and whose shared experts may have
+    no gate)."""
     def experts(d_in, d_out):
         return normal(gen, (cfg.n_experts, d_in, d_out)).mul_(d_in ** -0.5).to(dtype)
 
@@ -82,14 +94,17 @@ def init_moe_params(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
         "w_up": experts(d_model, cfg.d_ff_expert),
         "w_down": experts(cfg.d_ff_expert, d_model),
     }
+    if getattr(cfg, "correction_bias", False):
+        p["router_bias"] = torch.zeros((cfg.n_experts,), dtype=torch.float32, device=gen.device)
     if cfg.n_shared_experts:
         f_shared = cfg.n_shared_experts * cfg.d_ff_expert
         p["shared"] = {
             "w_gate": init_linear(gen, d_model, f_shared, dtype),
             "w_up": init_linear(gen, d_model, f_shared, dtype),
             "w_down": init_linear(gen, f_shared, d_model, dtype),
-            "gate": init_linear(gen, d_model, 1, torch.float32),
         }
+        if getattr(cfg, "shared_gate", True):
+            p["shared"]["gate"] = init_linear(gen, d_model, 1, torch.float32)
     return p
 
 
@@ -116,10 +131,53 @@ def router_load_balancing_loss(router_probs, expert_ids, n_experts: int) -> torc
     return n_experts * torch.sum(frac_tokens * router_probs.mean(dim=0))
 
 
-def route(x, router, top_k: int, norm_topk: bool = True):
+def sequence_balance_loss(scores, expert_ids, n_experts: int, rows: int) -> torch.Tensor:
+    """DeepSeek-V3's sequence-wise balance loss: the mean over the ``rows``
+    packed rows of ``sum_e f_e * P_e``, with ``f_e = E / (k S)`` times the
+    row's pairs routed to ``e`` and ``P_e`` the row's mean of the normalised
+    scores ``s / sum(s)`` (1.0 at uniform).  ``scores (T, E)`` and
+    ``expert_ids (T, k)`` hold the rows one after another."""
+    if is_dtensor(expert_ids):
+        raise NotImplementedError("the sequence-wise balance loss runs on one device")
+    t, k = expert_ids.shape
+    s = t // rows
+    ids = expert_ids.reshape(rows, s * k)
+    counts = torch.zeros((rows, n_experts), device=ids.device).scatter_add_(
+        1, ids, torch.ones(ids.shape, device=ids.device))
+    p = (scores / scores.sum(dim=-1, keepdim=True)).reshape(rows, s, n_experts).mean(dim=1)
+    return torch.sum(counts * (n_experts / (k * s)) * p, dim=-1).mean()
+
+
+def _sigmoid_choice(scores, bias, top_k: int):
+    """The experts the sigmoid scores (plus the correction bias, which
+    only picks) choose: ``(T, k)`` ids.  While tracing, counts the pairs
+    whose expert the bias changed (``moe.bias_moved``)."""
+    if bias is None:
+        return torch.topk(scores, top_k, dim=-1).indices
+    ids = torch.topk(scores + bias.detach(), top_k, dim=-1).indices
+    if spans.is_on():
+        plain = torch.topk(scores, top_k, dim=-1).indices
+        kept = (ids[..., None] == plain[..., None, :]).any(dim=-1)
+        spans.count("moe.bias_moved", (~kept).sum())
+    return ids
+
+
+def route(x, router, top_k: int, norm_topk: bool = True, *, scoring: str = "softmax",
+          bias=None, routed_scale: float = 1.0):
     """``(probs (T, E), weights (T, k), ids (T, k))`` of tokens ``x (T, D)``.
-    On DTensors the softmax and top-k run on each rank's tokens."""
-    def local(logits):
+    ``scoring="sigmoid"``: ``probs`` are the sigmoid scores, the experts the
+    top-k of the scores plus ``bias`` (no gradient reaches it), the weights
+    the scores at those experts, renormalised with ``norm_topk`` and times
+    ``routed_scale``.  On DTensors the scoring and top-k run on each rank's
+    tokens (without a bias)."""
+    def local(logits, bias=None):
+        if scoring == "sigmoid":
+            probs = torch.sigmoid(logits)
+            ids = _sigmoid_choice(probs, bias, top_k)
+            weights = probs.gather(-1, ids)
+            if norm_topk:
+                weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+            return probs, weights * routed_scale, ids
         probs = torch.softmax(logits, dim=-1)
         weights, ids = torch.topk(probs, top_k, dim=-1)
         if norm_topk:
@@ -128,7 +186,9 @@ def route(x, router, top_k: int, norm_topk: bool = True):
 
     logits = dot_f32(x, whole(router))
     if not is_dtensor(logits):
-        return local(logits)
+        return local(logits, bias)
+    if bias is not None:
+        raise NotImplementedError("routing with a correction bias runs on one device")
     pl = placements(logits.shape, ("batch", None))
     k_pl = placements((logits.shape[0], top_k), ("batch", None))
     return shard_map(local, (logits,), (pl,), (pl, k_pl, k_pl))
@@ -346,8 +406,16 @@ def moe_ffn(
     expert_perm: Optional[torch.Tensor] = None,
     n_dispatch_shards: int = 1,
     train: bool = False,
+    scoring: str = "softmax",
+    routed_scale: float = 1.0,
+    seq_rows: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (T, D), aux load-balancing loss).
+
+    ``scoring``, ``routed_scale`` and ``params["router_bias"]`` (where the
+    layer has one) choose the experts and weigh them (:func:`route`);
+    ``seq_rows`` > 0 takes DeepSeek-V3's sequence-wise balance loss over
+    that many rows of ``x`` in place of the Switch loss.
 
     ``n_dispatch_shards`` (the data-parallel degree under a mesh profile)
     splits each expert's capacity into per-shard slices, the reference's
@@ -360,8 +428,13 @@ def moe_ffn(
     x = grad_layout(x, "batch", None)
     with spans.span("repro_torch.moe.route") as sp:
         xr, router = sp.inputs(x, params["router"])
-        probs, weights, ids = route(xr, router, top_k, norm_topk)
-        aux = router_load_balancing_loss(probs, ids, n_experts)
+        bias = params["router_bias"] if "router_bias" in params else None
+        probs, weights, ids = route(xr, router, top_k, norm_topk, scoring=scoring, bias=bias,
+                                    routed_scale=routed_scale)
+        if seq_rows:
+            aux = sequence_balance_loss(probs, ids, n_experts, seq_rows)
+        else:
+            aux = router_load_balancing_loss(probs, ids, n_experts)
         weights, aux = sp.output(weights, aux)
     ns = n_dispatch_shards
     if ns < 1 or t % ns or capacity % ns or capacity // ns < top_k:
@@ -381,9 +454,20 @@ def moe_ffn(
     y = y.to(x.dtype)
 
     if "shared" in params:
-        sp = params["shared"]
-        g, u = col_linear(x, (sp["w_gate"], sp["w_up"]), dot_f32)
-        ys = row_linear((F.silu(g) * u).to(x.dtype), sp["w_down"], linear)
-        sg = torch.sigmoid(dot_f32(x, whole(sp["gate"])))  # (T, 1)
-        y = y + (ys.float() * sg).to(x.dtype)
+        y = y + _shared_experts(x, params["shared"])
     return y, aux
+
+
+def _shared_experts(x, params):
+    """The shared experts' SwiGLU of every token ``x (T, D)``, under their
+    sigmoid gate where they have one (``gate``), under the span
+    ``repro_torch.moe.shared``."""
+    names = [k for k in ("w_gate", "w_up", "w_down", "gate") if k in params]
+    with spans.span("repro_torch.moe.shared") as sp:
+        x, *ws = sp.inputs(x, *(params[k] for k in names))
+        w = dict(zip(names, ws))
+        g, u = col_linear(x, (w["w_gate"], w["w_up"]), dot_f32)
+        ys = row_linear((F.silu(g) * u).to(x.dtype), w["w_down"], linear)
+        if "gate" in w:
+            ys = (ys.float() * torch.sigmoid(dot_f32(x, whole(w["gate"])))).to(x.dtype)  # (T, 1)
+        return sp.output(ys)

@@ -114,10 +114,22 @@ class Params(nn.Module):
             node = out
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = (xs[0][1] if not xs[0][0] else
-                              torch.stack([x for _, x in xs]).reshape(stack_shape(xs)
-                                                                      + xs[0][1].shape))
+            node[path[-1]] = xs[0][1] if not xs[0][0] else _stack(xs)
         return out
+
+
+def _stack(parts) -> torch.Tensor:
+    """The stacked leaf of ``(index, weight)`` parts.  A leaf that only some
+    layers have (the MoE layers' after leading dense ones) keeps every
+    layer's place, as a checkpoint stores it, with zeros in the others'."""
+    shape = stack_shape(parts)
+    first = parts[0][1]
+    if len(parts) == int(np.prod(shape)):  # every layer has it (DTensor leaves included)
+        return torch.stack([x for _, x in parts]).reshape(shape + first.shape)
+    out = first.new_zeros(shape + first.shape)
+    for index, x in parts:
+        out[index] = x
+    return out
 
 
 def stack_shape(parts) -> tuple:

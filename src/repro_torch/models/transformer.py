@@ -37,9 +37,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..archs import RoutedMoESettings
 from ..kernels import flash_attention
 from ..runtime import spans
 from . import mamba2 as m2
+from . import mla
 from .layers import (
     apply_mrope,
     apply_rope,
@@ -93,17 +95,29 @@ def _cdtype(cfg):
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not know."""
+def check_supported(cfg, serving: bool = False) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not know,
+    and with ``serving`` for latent attention (MLA), which the port trains
+    but does not serve: that needs a latent cache."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch "
             f"({', '.join(FAMILIES)} are)")
+    if serving and _mla(cfg) is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention (MLA) is trained but not served: prefill and decode "
+            "need a latent cache, which repro_torch does not have yet")
+
+
+def _mla(cfg):
+    """The config's latent-attention settings, or None."""
+    return getattr(cfg, "mla", None)
 
 
 #: Param leaves that stay float32 under mixed precision (routing decisions,
-#: SSD decay rates — small, numerically sensitive).
-_KEEP_F32 = ("router", "gate", "dt_bias", "A_log", "D")
+#: SSD decay rates — small, numerically sensitive; a bf16 copy of the
+#: router's correction bias would move which experts are chosen).
+_KEEP_F32 = ("router", "router_bias", "gate", "dt_bias", "A_log", "D")
 
 
 def _compute_cast(cfg):
@@ -172,6 +186,8 @@ def period_layers(cfg) -> list[tuple[str, int, str, int]]:
 def _init_attn(gen, cfg) -> dict:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = _dtype(cfg)
+    if _mla(cfg) is not None:
+        return mla.init_mla_params(gen, cfg, dt)
     p = {
         "norm": init_rms_norm(d, dt, gen.device),
         "wq": init_linear(gen, d, hq * dh, dt),
@@ -226,8 +242,9 @@ def init_params(cfg, seed: int, device) -> Params:
     ``torch.Generator`` seeded with ``seed`` (not the reference's numbers:
     carry those across with ``params_from_reference``).  On the meta device
     nothing is drawn: the tree has the shapes and dtypes and no storage.
-    ``dense``/``moe`` take the FFN kind of layer 0 for every layer, as the
-    reference does."""
+    ``dense``/``moe`` give each layer of ``params["blocks"]`` its FFN kind
+    (``cfg.ffn_kinds()``: one kind for every layer of the reference's
+    configs, leading dense layers before the MoE ones for DeepSeek-V3's)."""
     check_supported(cfg)
     gen = generator(seed, device)
     dt = _dtype(cfg)
@@ -249,9 +266,9 @@ def init_params(cfg, seed: int, device) -> Params:
                            "ffn": _init_mlp(gen, cfg)} for _ in range(cfg.n_layers)]
         tree["enc_final_norm"] = init_rms_norm(cfg.d_model, dt, gen.device)
     else:
-        init_ffn = _init_moe if cfg.ffn_kinds()[0] == "moe" else _init_mlp
-        tree["blocks"] = [{"attn": _init_attn(gen, cfg), "ffn": init_ffn(gen, cfg)}
-                          for _ in range(cfg.n_layers)]
+        tree["blocks"] = [{"attn": _init_attn(gen, cfg),
+                           "ffn": (_init_moe if kind == "moe" else _init_mlp)(gen, cfg)}
+                          for kind in cfg.ffn_kinds()]
     return Params(tree)
 
 
@@ -473,8 +490,11 @@ def attn_block(p, cfg, h, positions, *, causal: bool = True, memory=None,
     """Full-sequence attention of the training path, residual included:
     self-attention over ``h``, or cross-attention over ``memory`` (keys roped
     at ``memory_positions``, plain RoPE, non-causal), through the
-    differentiable :func:`chunked_attention` on un-repeated GQA K/V."""
+    differentiable :func:`chunked_attention` on un-repeated GQA K/V; latent
+    attention (causal self-attention only) through :func:`mla.attend`."""
     x = rms_norm(h, p["norm"], cfg.norm_eps)
+    if _mla(cfg) is not None:
+        return _out_proj(p, h, mla.attend(p, cfg, x, positions))
     q = _project_q(p, cfg, x)
     if memory is None:
         k, v = _project_kv(p, cfg, x)
@@ -520,8 +540,13 @@ def moe_block(p, cfg, h, capacity: int, train: bool = False):
     split = b % ways  # the tokens split over the batch axes where the batch does not:
     if split:  # whole again before the view back to (B, S, D), both ways
         x = grad_layout(x, None, None)
-    y, aux = moe_ffn(x, p["moe"], cfg.moe.n_experts, cfg.moe.top_k, capacity,
-                     n_dispatch_shards=ns, train=train)
+    e = cfg.moe
+    routing = {}
+    if isinstance(e, RoutedMoESettings):
+        routing = {"scoring": e.scoring, "routed_scale": e.routed_scale,
+                   "seq_rows": b if e.balance == "sequence" else 0}
+    y, aux = moe_ffn(x, p["moe"], e.n_experts, e.top_k, capacity, n_dispatch_shards=ns,
+                     train=train, **routing)
     if split:
         y = hint(y, None, None)
     return hint(h + y.reshape(b, s, d), "batch", None, None), aux
@@ -562,7 +587,7 @@ def _mamba_decode(p, cfg, h, conv, ssm):
 
 def cache_shapes(cfg, batch_size: int, max_len: int, enc_len: int = 0) -> dict:
     """``{name: (shape, dtype)}`` of the decode cache :func:`init_cache` makes."""
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     dt = _cdtype(cfg)
     lead = (cfg.n_layers,)
     out = {}
@@ -780,8 +805,7 @@ def forward_train(params, cfg, batch: dict):
         for lp in params["blocks"]:
             h = _remat(cfg, _encdec_layer, lp, cfg, h, positions, memory, mem_pos)
     else:
-        ffn = cfg.ffn_kinds()[0]
-        for lp in params["blocks"]:
+        for lp, ffn in zip(params["blocks"], cfg.ffn_kinds()):
             h, a = _remat(cfg, _decoder_layer, lp, cfg, h, positions, positions3, ffn, cap)
             aux = aux + a
     return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
@@ -794,7 +818,7 @@ def forward_prefill(params, cfg, batch: dict, max_len: int):
     optionally ``positions`` (B, S) and ``positions3`` (3, B, S) (M-RoPE), and
     for ``encdec`` the encoder's ``enc_embeds`` (B, S_enc, D).
     """
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     h, positions, positions3 = _embed_in(params, cfg, batch)
     b, s, _ = h.shape
     cap = moe_capacity(cfg, b * s) if cfg.moe is not None else 0
@@ -840,9 +864,8 @@ def forward_prefill(params, cfg, batch: dict, max_len: int):
             h = pin(mlp_block(blk["ffn"], cfg, h))
 
     else:
-        ffn = cfg.ffn_kinds()[0]
         cache = _new_cache(cfg, b, max_len, h)
-        for i, blk in enumerate(params["blocks"]):
+        for i, (blk, ffn) in enumerate(zip(params["blocks"], cfg.ffn_kinds())):
             h, k, v = attn_block_prefill(blk["attn"], cfg, h, positions, positions3)
             h = pin(_ffn(blk["ffn"], cfg, h, ffn, cap))
             _write_prefix(cache["k"][i], k)
@@ -855,7 +878,7 @@ def forward_decode(params, cfg, cache: dict, batch: dict, pos: int):
     ``pos`` is the write position (current sequence length; the SSD state
     carries it for the Mamba layers).  Returns (logits (B, vocab) in float32,
     cache updated in place)."""
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     if "embeds" in batch:
         h = _tokens(params, batch["embeds"])
     else:
@@ -890,8 +913,7 @@ def forward_decode(params, cfg, cache: dict, batch: dict, pos: int):
             h = pin(mlp_block(blk["ffn"], cfg, h))
 
     else:
-        ffn = cfg.ffn_kinds()[0]
-        for i, blk in enumerate(params["blocks"]):
+        for i, (blk, ffn) in enumerate(zip(params["blocks"], cfg.ffn_kinds())):
             h, _, _ = attn_block_decode(blk["attn"], cfg, h, cache["k"][i], cache["v"][i], pos)
             h = pin(_ffn(blk["ffn"], cfg, h, ffn, cap))
     h = rms_norm(h[:, 0, :], params["final_norm"], cfg.norm_eps)

@@ -180,11 +180,11 @@ def _base_spec(
         return (g(shape[0], tp), g(shape[1], row))
     if name == "lm_head":
         return (g(shape[0], row), g(shape[1], col if rules.wide else tp))
-    if name in ("wq", "wk", "wv"):
+    if name in ("wq", "wk", "wv", "wkv_b"):  # wkv_b: MLA's latent to its heads' k and v
         return (g(shape[0], row), g(shape[1], tp))
     if name == "wo":
         return (g(shape[0], tp), g(shape[1], row))
-    if name == "router":
+    if name in ("router", "wkv_a"):  # wkv_a: MLA's x to its latent and shared k_rope
         return (g(shape[0], row), None)
     if name in ("w_gate", "w_up"):  # dense MLP / shared experts (D, F)
         return (g(shape[0], row), g(shape[1], col if rules.wide else tp))
@@ -204,7 +204,8 @@ def _base_spec(
             return (g(shape[0], wide_or_tp),)
         if name in ("dt_bias", "A_log", "D"):
             return (g(shape[0], tp),)
-    # norms / q_norm / k_norm / final norms: replicated.
+    # norms / q_norm / k_norm / kv_norm / final norms, the router's correction
+    # bias: replicated.
     return tuple(None for _ in shape)
 
 

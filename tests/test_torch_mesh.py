@@ -582,8 +582,8 @@ def remesh_case(mesh, cfg, device, sizes, meshes, steps=1, cpu_checks=True):
         tokens whose own top-k differs are counted, per call."""
         log, otherwise, route = [], [], moe.route
 
-        def recording(x, router, top_k, norm_topk=True):
-            probs, weights, ids = route(x, router, top_k, norm_topk)
+        def recording(x, router, top_k, norm_topk=True, **routing):
+            probs, weights, ids = route(x, router, top_k, norm_topk, **routing)
             if replay is not None:
                 theirs = replay[len(log)].to(ids.device)
                 otherwise.append(int((torch.sort(ids, -1).values != torch.sort(theirs, -1).values)

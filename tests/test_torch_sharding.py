@@ -28,12 +28,13 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from repro.configs import SHAPES as JAX_SHAPES  # noqa: E402
 from repro.configs import cells as jax_cells  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import list_archs  # noqa: E402  (the archs the reference has to compare with)
 from repro.launch import hlo as jax_hlo  # noqa: E402
 from repro.launch import specs as jax_specs  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.models.transformer import cast_params_for_compute as jax_cast  # noqa: E402
 from repro.runtime import sharding as jax_sharding  # noqa: E402
-from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.launch import hlo, specs  # noqa: E402
 from repro_torch.launch.dryrun import work_list  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
