@@ -113,12 +113,22 @@ The training path (``training``): ``run_training`` on qwen3-moe-30b-a3b at
 its published widths, layers 0-3 (3,114,814,464 parameters), f32 masters,
 bf16 compute, remat, its own AdamW and warmup-cosine, 6 steps of 8 x 2,048
 synthetic tokens in 2 microbatches, counts set to 0 just before and read
-just after: every loss and grad norm finite, no kernel launched (the
-reference trains through no Pallas kernel: chunked attention and einsum
-experts, differentiable PyTorch here), every leaf a nonzero gradient; each
+just after: every loss and grad norm finite, no kernel launched but the
+training attention's (the reference trains through no Pallas kernel, and
+the port's einsum experts are differentiable PyTorch; its bf16 attention
+takes the flash training forward and backward, a forward each for the pass
+and for remat's recompute and a backward each, a layer and microbatch),
+every leaf a nonzero gradient; each
 step's loss, grad norm, lr and wall ms, the steady step and tokens/s, the
 peak memory, the step's bound (the products over the bf16 rate plus
 AdamW's bytes over the memory rate) and one profiled step.
+``train_kernels``: the training attention's forward (with the rows'
+log-sum-exp) and backward at the per-call shapes of the benchmark's two
+training cells (``TRAIN_ATTENTION``) against their twins (the log-sum-exp
+to LSE_TOL; the backward's twin from the kernel's output and the twin's
+log-sum-exp), two backward calls bit-equal, timed beside their bound, the
+twins and SDPA (a yardstick only); the qwen3-moe shape is the training
+path's, the Moonlight shape a nested entry that no path runs.
 ``train_checks``: ``forward_train``'s last hidden state against
 ``forward_prefill``'s (through the kernels) at published widths in float32,
 and one train step of every registered reduced config on the card against
@@ -195,6 +205,10 @@ BF16_TOL, F32_TOL = 5e-2, 2e-5
 # the row, the limit is about 2e-3 at row 2,048 and 5e-2 at the first rows;
 # one bf16 ulp of the output is at most 2^-7 of it.
 BF16_RTOL, BF16_ROW = 1e-2, 5e-2
+# The training forward's float32 row log-sum-exp, O(log T) (about 8 at 2,048
+# keys): float32 sums in another order move it by a few 1e-6; a wrong log
+# base, a missing scale or a row of another q tile moves it by 0.1 or more.
+LSE_TOL = 1e-4
 # Reduced float32 models on the card against the CPU: sums in other orders
 # over 2 layers move logits by a few 1e-6; a fault moves them by 1e-2 or more.
 E2E_TOL = 1e-4
@@ -258,8 +272,10 @@ LM_KERNELS = ("flash_attention", "moe_mlp")
 SYMBOLS = {"spmv_software_cache": ("smem_kernel",), "spmv_streaming": ("stream_kernel",),
            "spmv_streaming_batched": ("stream_kernel",), "ep_combine": ("combine_kernel",),
            "flash_attention": ("flash_bf16_kernel",),
-           "moe_mlp": ("gemm_bf16_kernel", "gemm_swap_bf16_kernel")}
-LIBRARIES = ("ep_spmv", "flash_attention", "moe_mlp")  # csrc/<name>.cu
+           "moe_mlp": ("gemm_bf16_kernel", "gemm_swap_bf16_kernel"),
+           "flash_attention_train": ("flash_bf16_kernel",),
+           "flash_attention_backward": ("dot_rows_kernel", "flash_dkv_kernel", "flash_dq_kernel")}
+LIBRARIES = ("ep_spmv", "flash_attention", "flash_attention_bwd", "moe_mlp")  # csrc/<name>.cu
 # The SASS instructions counted in every kernel (cuobjdump -sass), by name
 # and pattern: Hopper's tensor-core and TMA-load instructions, and 16-byte
 # global loads with any cache qualifier.  A kernel whose name holds a key of
@@ -268,7 +284,13 @@ LIBRARIES = ("ep_spmv", "flash_attention", "moe_mlp")  # csrc/<name>.cu
 # load.
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
             "LDG.128": r"\bLDG\.E\.(?:\w+\.)*128\b"}
-SASS_NEEDS = {"bf16": ("HGMMA", "UTMALDG"), "stream_kernel": ("LDG.128",)}
+SASS_NEEDS = {"bf16": ("HGMMA", "UTMALDG"), "flash_dkv_kernel": ("HGMMA", "UTMALDG"),
+              "flash_dq_kernel": ("HGMMA", "UTMALDG"), "stream_kernel": ("LDG.128",)}
+# The training attention at each benchmark cell's per-call shape: (B, H, Hkv,
+# S = T, Dh, Dv), causal self-attention.
+TRAIN_ATTENTION = {"qwen3moe.train": (4, 32, 4, 2048, 128, 128),
+                   "moonlight.train-8k": (1, 16, 16, 8192, 192, 128)}
+CHUNKED_ATTENTION = "src/repro/models/layers.py chunked_attention (pure JAX, under autograd)"
 
 
 _T0 = time.perf_counter()
@@ -852,40 +874,62 @@ def phase_serving(path):
     return cfg, state, launches, experts_read
 
 
-def bf16_scaled_err(got, want) -> float:
+def bf16_scaled_err(got, want, whole=False) -> float:
     """The worst ``|got - want| / (BF16_RTOL |want| + BF16_ROW rms(want's row))``:
-    at most 1 passes."""
+    at most 1 passes.  With ``whole`` the rms is the whole tensor's, not a
+    row's (a gradient's row may be exactly zero where the kernel's holds
+    rounding: the first query's dS is p (dP - D) = 0)."""
     import torch
 
     w = want.double()
     err = (got.double() - w).abs()
-    limit = BF16_RTOL * w.abs() + BF16_ROW * w.square().mean(-1, keepdim=True).sqrt()
+    rms = w.square().mean().sqrt() if whole else w.square().mean(-1, keepdim=True).sqrt()
+    limit = BF16_RTOL * w.abs() + BF16_ROW * rms
     return torch.where(err == 0, 0.0, err / limit).max().item()
 
 
+def _held_to(label, got, want, tol, whole):
+    """``got`` against ``want``: finite, within ``tol`` (relative and
+    absolute) and, in bf16, within :func:`bf16_scaled_err`'s limit.
+    Returns the largest absolute error and the scaled error (None unless
+    bf16)."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    err = (got.double() - want.double()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"{label}: {m}")
+    scaled = bf16_scaled_err(got, want, whole) if got.dtype == torch.bfloat16 else None
+    if scaled is not None and scaled > 1:
+        raise AssertionError(f"{label}: error up to {scaled:.3g} times "
+                             f"{BF16_RTOL} |want| + {BF16_ROW} rms")
+    return err, scaled
+
+
 def _kernel_entry(name, replaces, source, launches, run, plain, library, nbytes, flops,
-                  shapes, *, tol, peak_flops, iters):
+                  shapes, *, tol, peak_flops, iters, outputs=None, whole=False):
     """One kernel against its twin on the same card tensors, then timed.
 
     ``ms`` is CUDA events over ``iters`` back-to-back launches (never below
     the wrapper's host cost per launch); ``device_ms`` the kernel alone from
     the profiler's trace; ``bound_ms`` the larger of ``nbytes`` over the
-    memory rate and ``flops`` over ``peak_flops``.  A bf16 output is held to
-    ``tol`` and to the scaled limit of :func:`bf16_scaled_err`.
+    memory rate and ``flops`` over ``peak_flops``.  Each output is held to
+    :func:`_held_to` (``whole``: the scaled limit over the whole tensor's
+    rms).  Where ``run`` and ``plain`` return tuples, ``outputs`` names
+    their parts, ``tol`` is a dict by name, and the errors are dicts.
     """
     import torch
 
     got, want = run(), plain()
     torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: non-finite output")
-    err = (got.double() - want.double()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
-                               msg=lambda m: f"{name} {shapes}: {m}")
-    scaled = bf16_scaled_err(got, want) if got.dtype == torch.bfloat16 else None
-    if scaled is not None and scaled > 1:
-        raise AssertionError(f"{name} {shapes}: error up to {scaled:.3g} times "
-                             f"{BF16_RTOL} |want| + {BF16_ROW} rms(row)")
+    if outputs is None:
+        err, scaled = _held_to(f"{name} {shapes}", got, want, tol, whole)
+    else:
+        held = {o: _held_to(f"{name} {o} {shapes}", g, w, tol[o], whole)
+                for o, g, w in zip(outputs, got, want, strict=True)}
+        err = {o: e for o, (e, _) in held.items()}
+        scaled = {o: sc for o, (_, sc) in held.items()}
     del got, want
     ms = _time_ms(run, iters)
     reps = max(5, iters // 5)
@@ -986,6 +1030,83 @@ def _routed_decode_entry(moe, cfg, b, gen, launches, twin_chunk=None):
     occupied = int(torch.unique(ids).numel())
     return _moe_entry(slab, moe.w_gate, moe.w_up, moe.w_down, launches, 20,
                       experts=occupied, rows=int(keep.sum()), twin_chunk=twin_chunk), occupied
+
+
+def phase_train_kernels():
+    """The training attention's kernels at each cell's per-call shape
+    (``TRAIN_ATTENTION``), bf16, against their twins, timed: the forward
+    with its log-sum-exp (``flash_attention_train``) and the backward
+    (``flash_attention_backward``: D, dK and dV, dQ).
+
+    Each is held by :func:`_kernel_entry` to its twin: the forward's output
+    as the prefill's, its float32 ``lse`` (natural log, O(log T)) to
+    ``LSE_TOL``; the backward's dq, dk and dv (scaled by each tensor's rms)
+    against the twin given the kernel's output (an input of the backward,
+    which the two forwards round at different places: p before or after
+    its normalisation) and the twin's own ``lse`` (a function of q and k
+    alone), so a wrong ``lse`` shows in the gradients too.  Two backward
+    calls must give the same bits.  Bounds on the tensor cores: the
+    forward's two products over the causal pairs, ``2 pairs (Dh + Dv)``
+    operations; the backward's seven (S, dP, dV, and dK and dQ as two bf16
+    halves of dS each), ``2 pairs (5 Dh + 2 Dv)``; the design's second S
+    and dP (one in each of its two kernels) are its own cost, not the
+    bound's.  Bytes: each input read and
+    each output written once.  The plain versions are the twins (one head
+    at a time); the library, as a yardstick only, SDPA's forward and, for
+    the backward, SDPA's backward pass alone (its graph kept and run again);
+    the port never calls it.  The first cell's shape is the training path's
+    (``training``); the others are nested entries that no path runs.
+    Returns the two entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_backward, flash_attention_train
+    from repro_torch.kernels.ref import flash_attention_backward_ref, flash_attention_train_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    entries = {}
+    for cell, (b, h, hkv, s, dh, dv) in TRAIN_ATTENTION.items():
+        q, k = _randn(gen, (b, h, s, dh)), _randn(gen, (b, hkv, s, dh))
+        v, do = _randn(gen, (b, hkv, s, dv)), _randn(gen, (b, h, s, dv))
+        pairs = b * h * s * (s + 1) // 2
+        gqa = {"enable_gqa": True} if hkv != h else {}
+        shapes = {"cell": cell, "B": b, "H": h, "Hkv": hkv, "S": s, "T": s, "Dh": dh, "Dv": dv,
+                  "causal": True}
+        out, lse = flash_attention_train(q, k, v, True)
+        _, want_lse = flash_attention_train_ref(q, k, v, True)
+        grads = flash_attention_backward(q, k, v, out, lse, do, True)
+        again = flash_attention_backward(q, k, v, out, lse, do, True)
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"{cell}: two backward calls differ")
+        del grads, again
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **gqa)
+        forward = _kernel_entry(
+            "flash_attention_train", CHUNKED_ATTENTION, "src/repro_torch/kernels/csrc/"
+            "flash_attention.cu", 0, lambda: flash_attention_train(q, k, v, True),
+            lambda: flash_attention_train_ref(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, **gqa),
+            2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel(),
+            2 * pairs * (dh + dv), shapes, tol={"out": BF16_TOL, "lse": LSE_TOL},
+            peak_flops=BF16_FLOPS, iters=10, outputs=("out", "lse"))
+        backward = _kernel_entry(
+            "flash_attention_backward", CHUNKED_ATTENTION, "src/repro_torch/kernels/csrc/"
+            "flash_attention_bwd.cu", 0,
+            lambda: flash_attention_backward(q, k, v, out, lse, do, True),
+            lambda: flash_attention_backward_ref(q, k, v, out, want_lse, do, True),
+            lambda: lib_out.backward(do, retain_graph=True),
+            2 * (2 * (q.numel() + k.numel() + v.numel()) + 2 * out.numel()) + 8 * lse.numel(),
+            2 * pairs * (5 * dh + 2 * dv), shapes, tol=dict.fromkeys(("dq", "dk", "dv"), BF16_TOL),
+            peak_flops=BF16_FLOPS, iters=10, outputs=("dq", "dk", "dv"), whole=True)
+        for en in (forward, backward):
+            _emit({"phase": "train_kernels", **en})
+            if entries.get(en["name"]) is None:
+                entries[en["name"]] = en
+            else:
+                entries[en["name"]][cell] = {**en, "path": None}
+        del q, k, v, do, out, lse, want_lse, qg, kg, vg, lib_out
+        torch.cuda.empty_cache()
+    return list(entries.values())
 
 
 def phase_lm_kernels(cfg, state, launches):
@@ -1438,12 +1559,13 @@ def phase_training():
     (median of steps 1-5) and tokens/s, the peak device memory and the
     step's bound (:func:`_train_bound`); then profiles one more step
     (device busy time by kernel; its ratio to the steady step is the device's
-    busy share).  Fails unless every loss and grad norm is finite, no kernel
-    was launched (the reference's train path runs no Pallas kernel), and
-    every leaf of the last step holds a nonzero gradient (in the reference's
-    reduced step every leaf of this family does; a detached cast or a
-    forward-only kernel would leave leaves without one).  Returns the
-    path's launch counts.
+    busy share).  Fails unless every loss and grad norm is finite, the
+    kernels launched were the training attention's alone (one backward per
+    layer and microbatch of each step, and a forward for it and for remat's
+    recompute), and every leaf of the last step holds a nonzero gradient (in
+    the reference's reduced step every leaf of this family does; a detached
+    cast or a forward-only kernel would leave leaves without one).  Returns
+    the path's launch counts.
     """
     import dataclasses
     import statistics
@@ -1472,8 +1594,12 @@ def phase_training():
     n_params = sum(p.numel() for p in state.params.parameters())
     if n_params != TRAIN_PARAMS or n_params != param_count(cfg)["total"]:
         raise AssertionError(f"training: {n_params} parameters, expected {TRAIN_PARAMS}")
-    if any(launches.values()):
-        raise AssertionError(f"training launched kernels: {launches}")
+    calls = t["steps"] * t["n_layers"] * t["microbatches"]
+    want = {name: 0 for name in launches}
+    want.update(flash_attention_train=calls * (2 if cfg.remat else 1),
+                flash_attention_backward=calls)
+    if launches != want:
+        raise AssertionError(f"training launched kernels {launches}, expected {want}")
     if not all(np.isfinite(h[k]) for h in history for k in ("loss", "grad_norm")):
         raise AssertionError(f"training: a loss or grad norm is not finite: {history}")
     no_grad = [n for n, p in state.params.named_parameters()
@@ -2367,6 +2493,7 @@ def main() -> int:
             phase_lm_checks()
             torch.cuda.empty_cache()
     by_path["training"] = phase_training()
+    entries += phase_train_kernels()
     dry = DryRun()  # on the host's cores, beside the checks that are not timed
     try:
         with restart_check_beside():

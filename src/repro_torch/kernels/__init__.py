@@ -2,8 +2,9 @@
 
 ``ep_spmv`` holds the SpMV kernels' wrappers and plain PyTorch twins; ``ops``
 the pack -> kernel -> combine entry points; ``flash_attention`` and
-``moe_mlp`` the serving path's attention and expert-FFN kernels; ``ref`` the
-plain oracles (the latter two's twins).  :func:`launch_counts` reads every
+``moe_mlp`` the serving path's attention and expert-FFN kernels, and
+``flash_attention_train`` / ``flash_attention_backward`` the training path's
+attention; ``ref`` the plain oracles (the attention and expert-FFN twins).  :func:`launch_counts` reads every
 wrapper's launch count.
 """
 from .ep_spmv import (
@@ -12,7 +13,7 @@ from .ep_spmv import (
     spmv_streaming,
     spmv_streaming_batched,
 )
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_backward, flash_attention_train
 from .moe_mlp import moe_mlp
 from .ops import (
     BucketSpec,
@@ -31,6 +32,8 @@ __all__ = [
     "ep_combine",
     "ep_spmv",
     "flash_attention",
+    "flash_attention_backward",
+    "flash_attention_train",
     "launch_counts",
     "make_bucketed_spmv_fn",
     "make_ep_spmv_fn",
@@ -45,7 +48,7 @@ __all__ = [
 ]
 
 _KERNELS = (spmv_software_cache, spmv_streaming, spmv_streaming_batched, ep_combine,
-            moe_mlp, flash_attention)
+            moe_mlp, flash_attention, flash_attention_train, flash_attention_backward)
 
 
 def reset_launch_counts() -> None:

@@ -128,15 +128,16 @@ def count_meta(name: str, flops: float, nbytes: float) -> None:
 
 def check_forward_only(name: str, *tensors: torch.Tensor) -> None:
     """Raise when autograd would record a product of ``tensors`` through the
-    wrapper ``name``.  The kernels have no backward (the reference's Pallas
-    kernels have none either) and write into fresh outputs through ctypes,
-    so such a result would come back silently cut from the graph; the twin
-    on the CPU raises as well, so that the two devices agree."""
+    wrapper ``name``.  The serving kernels have no backward (the reference's
+    Pallas kernels have none either) and write into fresh outputs through
+    ctypes, so such a result would come back silently cut from the graph;
+    the twin on the CPU raises as well, so that the two devices agree."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} is forward only: call it under torch.no_grad() or on tensors that do "
-            "not require grad (the training path differentiates chunked_attention and "
-            "swiglu instead)")
+            "not require grad (the training path differentiates chunked_attention, whose "
+            "bf16 inputs on a card take flash_attention_train and flash_attention_backward "
+            "through an autograd function, and swiglu)")
 
 
 def launch(name: str, symbol: str, argtypes, device: torch.device, *args) -> None:

@@ -43,6 +43,12 @@
 //     at once share a few heads' K and V in L2 (all 16 q tiles and, with
 //     GQA, the 8 q heads of a kv head), and the last CTAs are short ones.
 //
+// The training forward (flash_attention_train_bf16) is the same kernel with
+// values narrower than the q/k heads (Dv <= Dh, latent attention's 128 under
+// 192; padded to a multiple of 64 in shared memory apart from Dh) and one
+// more output: each row's natural log-sum-exp, m * scale + log(l), from
+// which flash_attention_bwd.cu recomputes the probabilities.
+//
 // float32 inputs take the first version's design: 64-row q tiles, 32-row
 // K/V tiles, everything in shared memory, FMA on the CUDA cores.
 //
@@ -73,17 +79,19 @@ constexpr int kBM = 128;        // q rows per CTA: two consumer warpgroups of 64
 constexpr int kThreads = 384;   // warpgroups 0, 1 consume; warpgroup 2 produces
 
 // Shared memory of one CTA: Q, then the K stages, the V stages and the
-// barriers, each tile a DP / 64 row of (rows x 64) swizzled tiles.  Three
-// stages in flight where they fit (227 KB), two at DP = 256.
-template <int DP, int BN>
+// barriers, each tile a DP / 64 (V: DVP / 64) row of (rows x 64) swizzled
+// tiles.  Three stages in flight where they fit (227 KB), two at DP = 256.
+template <int DP, int DVP, int BN>
 struct FlashTiles {
   static constexpr int kStages = DP == 256 ? 2 : 3;
-  static constexpr int kChunks = DP / 64;       // 64-wide column tiles of the head
+  static constexpr int kChunks = DP / 64;     // 64-wide column tiles of a q/k head
+  static constexpr int kVChunks = DVP / 64;   // ... of a v head
   static constexpr int kQBytes = kBM * DP * 2;
-  static constexpr int kKVBytes = BN * DP * 2;  // one K (or V) stage
+  static constexpr int kKBytes = BN * DP * 2;   // one K stage
+  static constexpr int kVBytes = BN * DVP * 2;  // one V stage
   static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + kStages * kKVBytes;
-  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kV = kK + kStages * kKBytes;
+  static constexpr int kBar = kV + kStages * kVBytes;
   static constexpr int kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;  // + 1,024-byte alignment
 };
 
@@ -96,12 +104,6 @@ __device__ __forceinline__ void named_sync(int id) {
 
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // S = Q K^T of one key tile (64 x BN, this warpgroup's rows) into sc, both
@@ -120,26 +122,26 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint64_t q_desc, u
 }
 
 // acc += P V of one key tile: P from registers, V (BN keys x 64 head columns
-// per tile) MN-major in shared memory; committed as one group.
-template <int DP, int BN>
-__device__ __forceinline__ void issue_pv(float (&acc)[DP / 64][32], uint32_t (&pf)[BN / 16][4],
+// per tile, DVP / 64 tiles) MN-major in shared memory; committed as one group.
+template <int DVP, int BN>
+__device__ __forceinline__ void issue_pv(float (&acc)[DVP / 64][32], uint32_t (&pf)[BN / 16][4],
                                          uint64_t v_desc) {
 #pragma unroll
-  for (int c = 0; c < DP / 64; ++c) fence_regs(acc[c]);
+  for (int c = 0; c < DVP / 64; ++c) fence_regs(acc[c]);
   wgmma_fence();
 #pragma unroll
   for (int kc = 0; kc < BN / 16; ++kc)
 #pragma unroll
-    for (int c = 0; c < DP / 64; ++c)
+    for (int c = 0; c < DVP / 64; ++c)
       wgmma_rs_n64<1>(acc[c], pf[kc], desc_advance(v_desc, c * BN * 128 + kc * 2048), 1);
   wgmma_commit();
 }
 
 // After P V completes: its registers may be read and written again.
-template <int DP, int BN>
-__device__ __forceinline__ void pv_done(float (&acc)[DP / 64][32], uint32_t (&pf)[BN / 16][4]) {
+template <int DVP, int BN>
+__device__ __forceinline__ void pv_done(float (&acc)[DVP / 64][32], uint32_t (&pf)[BN / 16][4]) {
 #pragma unroll
-  for (int c = 0; c < DP / 64; ++c) fence_regs(acc[c]);
+  for (int c = 0; c < DVP / 64; ++c) fence_regs(acc[c]);
 #pragma unroll
   for (int kc = 0; kc < BN / 16; ++kc) fence_regs(pf[kc]);
 }
@@ -211,10 +213,10 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BN / 2], float (&m_run)
 }
 
 // The accumulator times alpha, by row (accumulator layout).
-template <int DP>
-__device__ __forceinline__ void rescale(float (&acc)[DP / 64][32], const float (&alpha)[2]) {
+template <int DVP>
+__device__ __forceinline__ void rescale(float (&acc)[DVP / 64][32], const float (&alpha)[2]) {
 #pragma unroll
-  for (int c = 0; c < DP / 64; ++c)
+  for (int c = 0; c < DVP / 64; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i / 2) & 1];
 }
@@ -227,14 +229,17 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BN / 2], uint32_t (&pf)
   for (int i = 0; i < BN / 2; i += 2) pf[i / 8][(i / 2) % 4] = pack_bf16(sc[i], sc[i + 1]);
 }
 
-// blockIdx.x = q tile counted from the last, blockIdx.y = b*h.  DP is Dh
-// rounded up to a multiple of 64; BN keys per tile.
-template <int DP, int BN>
+// blockIdx.x = q tile counted from the last, blockIdx.y = b*h.  DP is Dh and
+// DVP is Dv rounded up to a multiple of 64; BN keys per tile.  With lse, each
+// row's natural log-sum-exp of its scaled scores goes there too (the
+// training forward; +inf for a row that sees no key).
+template <int DP, int DVP, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int S, int T,
-                  int dh, int group, int causal, float scale_log2) {
-  using L = FlashTiles<DP, BN>;
+                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                  float* __restrict__ lse, int S, int T, int dv, int group, int causal,
+                  float scale_log2) {
+  using L = FlashTiles<DP, DVP, BN>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -269,13 +274,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         if (it >= kStages) mbar_wait(&kv_empty[s], ((it / kStages) - 1) & 1);
-        unsigned char* ks = smem + L::kK + s * L::kKVBytes;
-        unsigned char* vs = smem + L::kV + s * L::kKVBytes;
-        mbar_arrive_expect_tx(&k_full[s], L::kKVBytes);
+        unsigned char* ks = smem + L::kK + s * L::kKBytes;
+        unsigned char* vs = smem + L::kV + s * L::kVBytes;
+        mbar_arrive_expect_tx(&k_full[s], L::kKBytes);
         for (int c = 0; c < L::kChunks; ++c)
           tma_load_3d(ks + c * BN * 128, &tk, &k_full[s], c * 64, it * BN, kvh);
-        mbar_arrive_expect_tx(&v_full[s], L::kKVBytes);
-        for (int c = 0; c < L::kChunks; ++c)
+        mbar_arrive_expect_tx(&v_full[s], L::kVBytes);
+        for (int c = 0; c < L::kVChunks; ++c)
           tma_load_3d(vs + c * BN * 128, &tv, &v_full[s], c * 64, it * BN, kvh);
       }
     }
@@ -296,9 +301,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     const uint64_t k_desc = sw128_desc(smem_addr(smem + L::kK), 16, 1024);
     const uint64_t v_desc = sw128_desc(smem_addr(smem + L::kV), BN * 128, 1024);
 
-    float acc[L::kChunks][32];
+    float acc[L::kVChunks][32];
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c)
+    for (int c = 0; c < L::kVChunks; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
     float sc[BN / 2];
@@ -328,16 +333,16 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       mbar_wait(&k_full[s], (it / kStages) & 1);
       mbar_wait(&v_full[sp], ((it - 1) / kStages) & 1);
       named_sync(my_turn);
-      issue_qk<DP, BN>(sc, q_desc, desc_advance(k_desc, s * L::kKVBytes));
-      rescale<DP>(acc, alpha);  // to tile it - 1's max, while S is on the tensor cores
-      issue_pv<DP, BN>(acc, pf, desc_advance(v_desc, sp * L::kKVBytes));
+      issue_qk<DP, BN>(sc, q_desc, desc_advance(k_desc, s * L::kKBytes));
+      rescale<DVP>(acc, alpha);  // to tile it - 1's max, while S is on the tensor cores
+      issue_pv<DVP, BN>(acc, pf, desc_advance(v_desc, sp * L::kVBytes));
       named_arrive(other_turn);
       wgmma_wait<1>();  // S of tile it is in; P V of tile it - 1 may still run
       fence_regs(sc);
       softmax_step<BN>(sc, m_run, l_run, alpha, it * BN, masked(it), row0, t4, T, causal,
                        scale_log2);
       wgmma_wait<0>();
-      pv_done<DP, BN>(acc, pf);
+      pv_done<DVP, BN>(acc, pf);
       __syncwarp();
       if (lane == 0) mbar_arrive(&kv_empty[sp]);  // tile it - 1's K and V are read
       pack_p<BN>(sc, pf);
@@ -346,46 +351,80 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       const int sp = (n_tiles - 1) % kStages;
       mbar_wait(&v_full[sp], ((n_tiles - 1) / kStages) & 1);
       named_sync(my_turn);
-      rescale<DP>(acc, alpha);
-      issue_pv<DP, BN>(acc, pf, desc_advance(v_desc, sp * L::kKVBytes));
+      rescale<DVP>(acc, alpha);
+      issue_pv<DVP, BN>(acc, pf, desc_advance(v_desc, sp * L::kVBytes));
       if (wg == 0) named_arrive(other_turn);  // warpgroup 1 issues nothing more
       wgmma_wait<0>();
-      pv_done<DP, BN>(acc, pf);
+      pv_done<DVP, BN>(acc, pf);
     }
 
     const float inv[2] = {1.f / fmaxf(l_run[0], 1e-20f), 1.f / fmaxf(l_run[1], 1e-20f)};
-    bf16* ob = o + static_cast<long long>(bh) * S * dh;
+    bf16* ob = o + static_cast<long long>(bh) * S * dv;
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) {
+    for (int c = 0; c < L::kVChunks; ++c) {
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const int col = c * 64 + 8 * (i / 4) + 2 * t4;
         const int row = row0 + 8 * ((i / 2) & 1);
         const float f = inv[(i / 2) & 1];
-        if (col < dh && row < S)
-          *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row) * dh + col) =
+        if (col < dv && row < S)
+          *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row) * dv + col) =
               pack_bf16(acc[c][i] * f, acc[c][i + 1] * f);
+      }
+    }
+    if (lse != nullptr && t4 == 0) {
+      // log(l) + m * scale, from base-2 units: the four threads of a quad hold
+      // the same row's m and l.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < S)
+          lse[static_cast<long long>(bh) * S + row] =
+              l_run[r] > 0.f ? (m_run[r] * scale_log2 + log2f(l_run[r])) * 0.6931471805599453f
+                             : CUDART_INF_F;
       }
     }
   }
 }
 
-template <int DP, int BN>
-int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int bh, int bhkv,
-                      int S, int T, int dh, int causal, float scale, cudaStream_t stream) {
-  using L = FlashTiles<DP, BN>;
-  static const int attr = hopper_host::allow_smem(flash_bf16_kernel<DP, BN>, L::kSmem);
+template <int DP, int DVP, int BN>
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                      int bhkv, int S, int T, int dh, int dv, int causal, float scale,
+                      cudaStream_t stream) {
+  using L = FlashTiles<DP, DVP, BN>;
+  static const int attr = hopper_host::allow_smem(flash_bf16_kernel<DP, DVP, BN>, L::kSmem);
   if (attr != 0) return attr;
   CUtensorMap tq, tk, tv;
   int err = hopper_host::make_map_3d(&tq, q, dh, S, bh, kBM);
   if (err == 0) err = hopper_host::make_map_3d(&tk, k, dh, T, bhkv, BN);
-  if (err == 0) err = hopper_host::make_map_3d(&tv, v, dh, T, bhkv, BN);
+  if (err == 0) err = hopper_host::make_map_3d(&tv, v, dv, T, bhkv, BN);
   if (err != 0) return err;
   const dim3 grid((S + kBM - 1) / kBM, bh);
-  flash_bf16_kernel<DP, BN><<<grid, kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), S, T, dh, bh / bhkv, causal,
+  flash_bf16_kernel<DP, DVP, BN><<<grid, kThreads, L::kSmem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, S, T, dv, bh / bhkv, causal,
       scale * 1.4426950408889634f);  // log2(e): the kernel works in powers of 2
   return static_cast<int>(cudaGetLastError());
+}
+
+// The training forward at DP: DVP from dv (<= DP).
+template <int DP, int BN>
+int launch_train_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                      int bhkv, int S, int T, int dh, int dv, int causal, float scale,
+                      cudaStream_t s) {
+  if (dv <= 64)
+    return launch_flash_bf16<DP, 64, BN>(q, k, v, o, lse, bh, bhkv, S, T, dh, dv, causal, scale, s);
+  if constexpr (DP >= 128)
+    if (dv <= 128)
+      return launch_flash_bf16<DP, 128, BN>(q, k, v, o, lse, bh, bhkv, S, T, dh, dv, causal,
+                                            scale, s);
+  if constexpr (DP >= 192)
+    if (dv <= 192)
+      return launch_flash_bf16<DP, 192, BN>(q, k, v, o, lse, bh, bhkv, S, T, dh, dv, causal,
+                                            scale, s);
+  if constexpr (DP == 256)
+    return launch_flash_bf16<DP, 256, BN>(q, k, v, o, lse, bh, bhkv, S, T, dh, dv, causal, scale,
+                                          s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -494,12 +533,34 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, i
                          int bhkv, int S, int T, int dh, int causal, float scale, void* stream) {
   if (bh <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64) return launch_flash_bf16<64, 128>(q, k, v, o, bh, bhkv, S, T, dh, causal, scale, s);
+  if (dh <= 64)
+    return launch_flash_bf16<64, 64, 128>(q, k, v, o, nullptr, bh, bhkv, S, T, dh, dh, causal,
+                                          scale, s);
   if (dh <= 128)
-    return launch_flash_bf16<128, 128>(q, k, v, o, bh, bhkv, S, T, dh, causal, scale, s);
+    return launch_flash_bf16<128, 128, 128>(q, k, v, o, nullptr, bh, bhkv, S, T, dh, dh, causal,
+                                            scale, s);
   if (dh <= 192)
-    return launch_flash_bf16<192, 64>(q, k, v, o, bh, bhkv, S, T, dh, causal, scale, s);
-  return launch_flash_bf16<256, 64>(q, k, v, o, bh, bhkv, S, T, dh, causal, scale, s);
+    return launch_flash_bf16<192, 192, 64>(q, k, v, o, nullptr, bh, bhkv, S, T, dh, dh, causal,
+                                           scale, s);
+  return launch_flash_bf16<256, 256, 64>(q, k, v, o, nullptr, bh, bhkv, S, T, dh, dh, causal,
+                                         scale, s);
+}
+
+// The training forward: as flash_attention_bf16, with v, o (bh|bhkv, T|S, dv),
+// dv <= dh a multiple of 16, and lse (bh, S) float32, each row's natural
+// log-sum-exp of its scaled scores (what the backward pass recomputes p from).
+int flash_attention_train_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int bh, int bhkv, int S, int T, int dh, int dv, int causal,
+                               float scale, void* stream) {
+  if (bh <= 0 || S <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dh <= 64) return launch_train_bf16<64, 128>(q, k, v, o, l, bh, bhkv, S, T, dh, dv, causal, scale, s);
+  if (dh <= 128)
+    return launch_train_bf16<128, 128>(q, k, v, o, l, bh, bhkv, S, T, dh, dv, causal, scale, s);
+  if (dh <= 192)
+    return launch_train_bf16<192, 64>(q, k, v, o, l, bh, bhkv, S, T, dh, dv, causal, scale, s);
+  return launch_train_bf16<256, 64>(q, k, v, o, l, bh, bhkv, S, T, dh, dv, causal, scale, s);
 }
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int bh, int bhkv,

@@ -5,9 +5,10 @@ flat-head layout ``(B, H, S, Dh)`` (K/V ``(B, Hkv, S, Dh)``, not repeated:
 the prefill kernel reads kv head ``h // (H // Hkv)`` for q head ``h``), and
 the cache in its native ``(B, T, Hkv, Dh)`` layout for decode; norms, RoPE
 and softmax in float32 whatever the activation type; weights in
-``(d_in, d_out)`` layout (``x @ w``).  The pure-JAX ``chunked_attention``
-stays in the reference: prefill attention goes through
-:func:`repro_torch.kernels.flash_attention`.
+``(d_in, d_out)`` layout (``x @ w``).  Prefill attention goes through
+:func:`repro_torch.kernels.flash_attention`; training's
+:func:`chunked_attention` through the flash training kernels on a card, and
+through the reference's chunked loop elsewhere.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.flash_attention import flash_attention_backward, flash_attention_train
 from ..runtime import spans
 from .spmd import col_linear, is_dtensor, row_linear
 
@@ -303,10 +305,54 @@ def chunked_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024) -> 
     ``jax.checkpoint``): its ``(B, H, S, kc)`` probabilities are recomputed
     in the backward pass, not kept for every step.  Runs under the span
     ``repro_torch.attention``.
+
+    Plain bf16 tensors on a CUDA device take :class:`_FlashAttention`
+    instead, the same arithmetic on the tensor cores: the flash training
+    forward and backward kernels, q, k and v made contiguous, ``kv_chunk``
+    unused; widths the kernels do not take raise there.  CPU and meta
+    tensors, float32 and float64 inputs and DTensors run the chunked loop
+    above.  Each forward call counts one ``attention.fused`` or
+    ``attention.chunked``.
     """
     with spans.span("repro_torch.attention") as sp:
         q, k, v = sp.inputs(q, k, v)
+        if _fused(q, k, v):
+            spans.count("attention.fused", 1)
+            return sp.output(_FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                                   v.contiguous(), causal))
+        spans.count("attention.chunked", 1)
         return sp.output(_chunked_attention(q, k, v, causal, kv_chunk))
+
+
+def _fused(q, k, v) -> bool:
+    """Whether :func:`chunked_attention` takes the flash training kernels:
+    plain (not DTensor) bf16 tensors on a CUDA device."""
+    return not any(is_dtensor(t) for t in (q, k, v)) and all(_card_bf16(t) for t in (q, k, v))
+
+
+def _card_bf16(t) -> bool:
+    return t.device.type == "cuda" and t.dtype == torch.bfloat16
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`chunked_attention` of contiguous bf16 q, k and v through
+    :func:`~repro_torch.kernels.flash_attention_train` and
+    :func:`~repro_torch.kernels.flash_attention_backward`.  Saves q, k, v,
+    the output and the rows' log-sum-exp; the backward pass recomputes the
+    probabilities from them, so no per-chunk checkpoint is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_train(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g.contiguous(), ctx.causal)
+        return dq, dk, dv, None
 
 
 def _chunked_attention(q, k, v, causal: bool, kv_chunk: int) -> torch.Tensor:

@@ -8,6 +8,7 @@ no JAX, so it also runs where only PyTorch is installed:
 """
 import importlib
 import importlib.util
+import math
 import re
 
 import numpy as np
@@ -352,6 +353,164 @@ def test_flash_attention_cross_shape_matches_twin(cuda_device):
     _assert_kernel_close(out, flash_attention_ref(q, k, v, False))
 
 
+# ---------------------------------------------------------------------------
+# Training attention: the flash forward with its log-sum-exp, the flash backward
+# ---------------------------------------------------------------------------
+
+# Scaled-down shapes of every kind the port trains: (B, H, Hkv, S, T, Dh, Dv, causal).
+TRAIN_ATTENTION = {
+    "gqa-32-4-dh128": (1, 32, 4, 512, 512, 128, 128, True),   # qwen3-moe's heads
+    "mla-192-128": (1, 4, 4, 384, 384, 192, 128, True),       # Moonlight's latent attention
+    "dh64-cross": (2, 8, 8, 200, 333, 64, 64, False),         # seamless's cross-attention
+    "ragged": (2, 8, 4, 257, 190, 128, 128, True),            # S, T not tile multiples, S > T
+    "dh256": (1, 2, 2, 160, 160, 256, 256, True),             # dK and dV a launch each
+}
+
+
+def _train_attention_inputs(case, dev):
+    b, h, hkv, s, t, dh, dv, causal = TRAIN_ATTENTION[case]
+    q = _randn((b, h, s, dh), torch.bfloat16, dev, 0)
+    k = _randn((b, hkv, t, dh), torch.bfloat16, dev, 1)
+    v = _randn((b, hkv, t, dv), torch.bfloat16, dev, 2)
+    return q, k, v, _randn((b, h, s, dv), torch.bfloat16, dev, 3), causal
+
+
+@pytest.mark.parametrize("case", list(TRAIN_ATTENTION), ids=list(TRAIN_ATTENTION))
+def test_fused_attention_matches_float64_chunked(cuda_device, no_tf32, case):
+    """``chunked_attention``'s fused path on the card: the output and dq, dk
+    and dv against the chunked loop's autograd in float64 on the same bf16
+    inputs, each within 1.5e-2 of the reference's largest magnitude (p, the
+    output and each gradient are rounded to bf16 once, 2^-8 relative each,
+    where the float64 loop rounds nothing).  The call counts one
+    ``attention.fused`` and launches one training forward and one backward."""
+    from repro_torch.models import layers
+    from repro_torch.runtime import spans
+
+    q, k, v, do, causal = _train_attention_inputs(case, cuda_device)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = launch_counts()
+    spans.clear()
+    spans.enable()
+    try:
+        with spans.step(cuda_device):
+            out = layers.chunked_attention(*leaves, causal=causal)
+            out.backward(do)
+        (st,) = spans.steps()
+    finally:
+        spans.disable()
+        spans.clear()
+    after = launch_counts()
+    assert st["counters"] == {"attention.fused": 1}
+    assert after["flash_attention_train"] == before["flash_attention_train"] + 1
+    assert after["flash_attention_backward"] == before["flash_attention_backward"] + 1
+    ref = [x.double().requires_grad_() for x in (q, k, v)]
+    want = layers._chunked_attention(*ref, causal, 1024)
+    want.backward(do.double())
+    for name, got, r in (("out", out, want), *zip(("dq", "dk", "dv"), (x.grad for x in leaves),
+                                                  (x.grad for x in ref))):
+        r = r.detach()
+        assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()), name
+        err = (got.double() - r).abs().max().item()
+        assert err <= 1.5e-2 * r.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("case", list(TRAIN_ATTENTION), ids=list(TRAIN_ATTENTION))
+def test_fused_attention_backward_is_deterministic(cuda_device, case):
+    """Two backward calls on the same inputs give the same bits (no atomics:
+    every CTA owns its rows of dq, dk and dv and sums in a fixed order)."""
+    from repro_torch.kernels import flash_attention_backward, flash_attention_train
+
+    q, k, v, do, causal = _train_attention_inputs(case, cuda_device)
+    out, lse = flash_attention_train(q, k, v, causal)
+    first = flash_attention_backward(q, k, v, out, lse, do, causal)
+    second = flash_attention_backward(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32's 10 stored mantissa bits (ties away)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _backward_variant(q, k, v, out, lse, do, causal, variant):
+    """The training backward's twin (``flash_attention_backward_ref``) with one
+    piece of its arithmetic changed: ``p_unrounded`` leaves p in float32 before
+    ``p^T do``, ``ds_one_bf16`` rounds dS once to bf16, ``ds_tf32`` takes dS in
+    TF32 (the other pieces as the twin's: dS as two bf16 halves, p rounded,
+    float32 sums)."""
+    g = q.shape[1] // k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    d = (do.float() * out.float()).sum(-1)
+    dq = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float64, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float64, device=q.device)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            kv = h // g
+            qf, kf, vf, dof = q[b, h].float(), k[b, kv].float(), v[b, kv].float(), do[b, h].float()
+            p = torch.exp(qf @ kf.T * scale - lse[b, h, :, None])
+            if causal:
+                p = p.masked_fill(torch.ones_like(p, dtype=torch.bool).triu(1), 0.0)
+            pv = p if variant == "p_unrounded" else p.bfloat16().float()
+            dv[b, kv] += (pv.T @ dof).double()
+            ds = scale * (p * (dof @ vf.T - d[b, h, :, None]))
+            if variant == "ds_one_bf16":
+                ds = ds.bfloat16().float()
+            elif variant == "ds_tf32":
+                ds = _tf32(ds)
+            else:
+                hi = ds.bfloat16().float()
+                ds = hi + (ds - hi).bfloat16().float()
+            dq[b, h] = (ds @ kf).double()
+            dk[b, kv] += (ds.T @ qf).double()
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("variant,grads", [("p_unrounded", (2,)), ("ds_one_bf16", (0, 1)),
+                                           ("ds_tf32", (0, 1))])
+@pytest.mark.parametrize("case", ["gqa-32-4-dh128", "mla-192-128"])
+def test_fused_attention_arithmetic_is_the_stated_one(cuda_device, no_tf32, case, variant,
+                                                      grads):
+    """The kernels' gradients lie nearer the stated arithmetic (bf16 operands
+    with float32 sums, p rounded to v's type before its product with dout,
+    dS as two bf16 halves: ``flash_attention_backward_ref``) than the same
+    computation with one piece changed: p left in float32 (dv), dS rounded
+    once to bf16 or taken in TF32 (dq and dk).  Nearer by half: ``|kernel -
+    stated| <= 0.5 |kernel - variant|`` in the Frobenius norm, each twin's
+    float32 result rounded to bf16 as the kernels round theirs (a changed
+    piece moves ~2^-9 to 2^-11 of a value, enough to round many entries
+    otherwise; the kernels' sum order moves ~2^-22 and rounds few
+    otherwise)."""
+    from repro_torch.kernels import flash_attention_backward, flash_attention_train
+    from repro_torch.kernels.ref import flash_attention_backward_ref
+
+    q, k, v, do, causal = _train_attention_inputs(case, cuda_device)
+    out, lse = flash_attention_train(q, k, v, causal)
+    got = flash_attention_backward(q, k, v, out, lse, do, causal)
+    stated = flash_attention_backward_ref(q, k, v, out, lse, do, causal)
+    changed = _backward_variant(q, k, v, out, lse, do, causal, variant)
+    for i in grads:
+        near = (got[i].double() - stated[i].double()).norm().item()
+        far = (got[i].double() - changed[i].bfloat16().double()).norm().item()
+        assert near <= 0.5 * far, (i, near, far)
+
+
+def test_fused_attention_width_the_kernels_do_not_take_raises_on_card(cuda_device):
+    """bf16 card inputs with values wider than the q/k heads raise in the
+    fused path; nothing launches and nothing falls back."""
+    from repro_torch.models import layers
+
+    q = _randn((1, 2, 64, 64), torch.bfloat16, cuda_device, 0)
+    k = _randn((1, 2, 64, 64), torch.bfloat16, cuda_device, 1)
+    v = _randn((1, 2, 64, 128), torch.bfloat16, cuda_device, 2)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="head sizes"):
+        layers.chunked_attention(q, k, v, causal=True)
+    assert launch_counts() == before
+
+
 @pytest.mark.parametrize("c", [64, 8])
 def test_moe_mlp_at_jamba_widths_matches_twin(cuda_device, c):
     """jamba-1.5-large's expert widths (D 8,192, F 24,576) on two experts,
@@ -427,8 +586,8 @@ def test_moe_mlp_routed_slab_matches_twin(cuda_device, e, c):
 
 def test_bf16_kernels_use_wgmma_and_tma(cuda_device):
     """The redesigned kernels compile to Hopper's tensor-core (HGMMA) and TMA
-    (UTMALDG) instructions."""
-    for name in ("flash_attention", "moe_mlp"):
+    (UTMALDG) instructions, and so do the training attention's backward kernels."""
+    for name in ("flash_attention", "flash_attention_bwd", "moe_mlp"):
         sass = _build.sass(name)
         assert "HGMMA" in sass and "UTMALDG" in sass, name
 
