@@ -87,8 +87,8 @@ smem_kernel(const T* __restrict__ vals, const int* __restrict__ x_lidx,
 // the sums run.  A window whose runs are all empty writes zeros without
 // reading its runs.  Chunks are aligned to the vector grid of the global
 // task index, so only a window's first and last vectors can be partial.
-// The window and chunk sizes are the fastest of the variants that
-// scripts/stream_variants.py times on the main path's plans.
+// The window and chunk sizes are the fastest of the design variants timed
+// on the main path's plans.
 constexpr int kStreamThreads = 256;
 constexpr int kSlotsPerThread = 4;
 constexpr int kWindow = kStreamThreads * kSlotsPerThread;  // y slots per CTA

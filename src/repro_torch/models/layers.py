@@ -1,4 +1,5 @@
-"""Shared neural-net primitives of the serving path (port of ``repro.models.layers``).
+"""Shared neural-net primitives of the serving and training paths (port of
+``repro.models.layers``).
 
 Conventions as in the reference: activations ``(B, S, D)``; attention in the
 flat-head layout ``(B, H, S, Dh)`` (K/V ``(B, Hkv, S, Dh)``, not repeated:
@@ -98,6 +99,7 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
 
 
+@spans.traced("repro_torch.dot_f32")
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32 (the reference's
     ``preferred_element_type=float32`` product), under the span
@@ -113,15 +115,13 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the float32 product (the reference promotes it), and so do DTensors,
     whose ops have no sharding rule for the ``out_dtype`` products.  Each
     product counts one ``dot_f32.tensor_core`` or ``dot_f32.float32``."""
-    with spans.span("repro_torch.dot_f32") as sp:
-        x, w = sp.inputs(x, w)
-        if _bf16_pair(x, w):
-            spans.count("dot_f32.tensor_core", 1)
-            return sp.output(_DotF32.apply(x, w))
-        spans.count("dot_f32.float32", 1)
-        if x.dtype == w.dtype == torch.float32:
-            return sp.output(linear(x, w))
-        return sp.output(linear(x.float(), w.float()))
+    if _bf16_pair(x, w):
+        spans.count("dot_f32.tensor_core", 1)
+        return _DotF32.apply(x, w)
+    spans.count("dot_f32.float32", 1)
+    if x.dtype == w.dtype == torch.float32:
+        return linear(x, w)
+    return linear(x.float(), w.float())
 
 
 def _bf16_pair(x, w) -> bool:
@@ -289,6 +289,7 @@ def _kv_step(qf, kb, vb, m_prev, l_prev, acc, k0: int, t: int, causal: bool, pad
     return m_new, l_new, acc * alpha[..., None] + pv
 
 
+@spans.traced("repro_torch.attention")
 def chunked_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks; never builds the (S, T) scores.
 
@@ -314,14 +315,11 @@ def chunked_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024) -> 
     above.  Each forward call counts one ``attention.fused`` or
     ``attention.chunked``.
     """
-    with spans.span("repro_torch.attention") as sp:
-        q, k, v = sp.inputs(q, k, v)
-        if _fused(q, k, v):
-            spans.count("attention.fused", 1)
-            return sp.output(_FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                                   v.contiguous(), causal))
-        spans.count("attention.chunked", 1)
-        return sp.output(_chunked_attention(q, k, v, causal, kv_chunk))
+    if _fused(q, k, v):
+        spans.count("attention.fused", 1)
+        return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    spans.count("attention.chunked", 1)
+    return _chunked_attention(q, k, v, causal, kv_chunk)
 
 
 def _fused(q, k, v) -> bool:

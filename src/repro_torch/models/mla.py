@@ -33,8 +33,6 @@ from .layers import apply_rope, chunked_attention, init_linear, init_rms_norm, l
 
 __all__ = ["attend", "deinterleave", "init_mla_params", "project"]
 
-_WEIGHTS = ("wq", "wkv_a", "kv_norm", "wkv_b")
-
 
 def init_mla_params(gen, cfg, dtype) -> dict:
     d, h, a = cfg.d_model, cfg.n_heads, cfg.mla
@@ -54,15 +52,17 @@ def deinterleave(x: torch.Tensor) -> torch.Tensor:
     return x.unflatten(-1, (x.shape[-1] // 2, 2)).transpose(-1, -2).flatten(-2)
 
 
-def project(p, cfg, x, positions):
-    """``(q, k, v)`` of the normed ``x (B, S, D)`` at ``positions (B, S)``:
-    q and k ``(B, H, S, Dn + Dr)`` roped, v ``(B, H, S, Dv)``."""
+@spans.traced("repro_torch.mla.project")
+def project(cfg, x, positions, wq, wkv_a, kv_norm, wkv_b):
+    """``(q, k, v)`` of the normed ``x (B, S, D)`` at ``positions (B, S)``
+    under the layer's weights: q and k ``(B, H, S, Dn + Dr)`` roped, v
+    ``(B, H, S, Dv)``."""
     a = cfg.mla
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, a.qk_nope_head_dim, a.qk_rope_head_dim
-    q_nope, q_rope = linear(x, p["wq"]).view(b, s, h, dn + dr).transpose(1, 2).split([dn, dr], -1)
-    latent, k_rope = linear(x, p["wkv_a"]).split([a.kv_lora_rank, dr], -1)
-    kv = linear(rms_norm(latent, p["kv_norm"], cfg.norm_eps), p["wkv_b"])
+    q_nope, q_rope = linear(x, wq).view(b, s, h, dn + dr).transpose(1, 2).split([dn, dr], -1)
+    latent, k_rope = linear(x, wkv_a).split([a.kv_lora_rank, dr], -1)
+    kv = linear(rms_norm(latent, kv_norm, cfg.norm_eps), wkv_b)
     k_nope, v = kv.view(b, s, h, dn + a.v_head_dim).transpose(1, 2).split([dn, a.v_head_dim], -1)
     q_rope = apply_rope(deinterleave(q_rope), positions, cfg.rope_theta)
     k_rope = apply_rope(deinterleave(k_rope[:, None]), positions, cfg.rope_theta)
@@ -73,7 +73,5 @@ def project(p, cfg, x, positions):
 
 def attend(p, cfg, x, positions) -> torch.Tensor:
     """Causal latent attention of the normed ``x (B, S, D)``: ``(B, H, S, Dv)``."""
-    with spans.span("repro_torch.mla.project") as sp:
-        x, *ws = sp.inputs(x, *(p[k] for k in _WEIGHTS))
-        q, k, v = sp.output(*project(dict(zip(_WEIGHTS, ws)), cfg, x, positions))
+    q, k, v = project(cfg, x, positions, p["wq"], p["wkv_a"], p["kv_norm"], p["wkv_b"])
     return chunked_attention(q, k, v, causal=True, kv_chunk=cfg.attn_chunk_kv)

@@ -79,6 +79,7 @@ def _ce_sharded(logits, yc):
     return torch.sum(m + torch.log(sum_exp) - gold)
 
 
+@spans.traced("repro_torch.loss")
 def chunked_ce_loss(h, w_head, labels, chunk: int) -> torch.Tensor:
     """Mean token cross-entropy of ``h (B, S, D)`` under the head ``w_head
     (D, V)`` against ``labels (B, S)``, computed ``chunk`` positions at a time.
@@ -89,12 +90,6 @@ def chunked_ce_loss(h, w_head, labels, chunk: int) -> torch.Tensor:
     chunk's logits are alive in either pass.  Runs under the span
     ``repro_torch.loss``.
     """
-    with spans.span("repro_torch.loss") as sp:
-        h, w_head = sp.inputs(h, w_head)
-        return sp.output(_chunked_ce_loss(h, w_head, labels, chunk))
-
-
-def _chunked_ce_loss(h, w_head, labels, chunk: int) -> torch.Tensor:
     b, s, _ = h.shape
     chunk = min(chunk, s)
     if s % chunk:

@@ -30,13 +30,18 @@ The MoE FFN:
      in the activation type) in differentiable PyTorch, as the reference
      trains through them and not through its kernel;
   5. each kept pair's output gathered back and combined with its router
-     weight in float32, plus the shared experts (span
-     ``repro_torch.moe.shared``) under their sigmoid gate where they have
-     one (``shared["gate"]``), added as they are where they have none.
+     weight in float32, plus the shared experts (the same SwiGLU over
+     every token) under their sigmoid gate where they have one
+     (``shared["gate"]``), added as they are where they have none.
 
 The aux loss is the Switch loss over the microbatch, or with ``seq_rows``
 DeepSeek-V3's sequence-wise balance loss over each packed row
 (:func:`sequence_balance_loss`).
+
+Spans (:func:`~repro_torch.runtime.spans.traced`): ``repro_torch.moe.route``
+(step 1 and the aux loss; the bias comes detached), ``.dispatch`` (2-3,
+counting ``moe.kept_pairs`` and ``moe.slots``), ``.experts``, ``.combine``
+and ``.shared``.
 
 ``expert_perm`` (E,) maps a logical expert to the slab slot holding its
 weights, as in the reference.  On DTensors (a mesh profile installed, see
@@ -52,14 +57,13 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels import moe_mlp
 from ..runtime import spans
 from ..runtime.axes import get_activation_sharding
-from .layers import dot_f32, init_linear, linear, normal, swiglu
-from .spmd import (col_linear, grad_layout, is_dtensor, local_index, placements, reduce_rows,
-                   row_linear, shard_map, slab_sum, whole)
+from .layers import dot_f32, init_linear, normal, swiglu
+from .spmd import (grad_layout, is_dtensor, local_index, placements, reduce_rows, shard_map,
+                   slab_sum, whole)
 
 __all__ = ["dispatch", "expert_positions", "init_moe_params", "moe_ffn", "recorded_routing",
            "route", "router_load_balancing_loss", "sequence_balance_loss"]
@@ -150,16 +154,10 @@ def sequence_balance_loss(scores, expert_ids, n_experts: int, rows: int) -> torc
 
 def _sigmoid_choice(scores, bias, top_k: int):
     """The experts the sigmoid scores (plus the correction bias, which
-    only picks) choose: ``(T, k)`` ids.  While tracing, counts the pairs
-    whose expert the bias changed (``moe.bias_moved``)."""
-    if bias is None:
-        return torch.topk(scores, top_k, dim=-1).indices
-    ids = torch.topk(scores + bias.detach(), top_k, dim=-1).indices
-    if spans.is_on():
-        plain = torch.topk(scores, top_k, dim=-1).indices
-        kept = (ids[..., None] == plain[..., None, :]).any(dim=-1)
-        spans.count("moe.bias_moved", (~kept).sum())
-    return ids
+    only picks: no gradient flows through the ids) choose: ``(T, k)`` ids."""
+    if bias is not None:
+        scores = scores + bias
+    return torch.topk(scores, top_k, dim=-1).indices
 
 
 def route(x, router, top_k: int, norm_topk: bool = True, *, scoring: str = "softmax",
@@ -194,6 +192,19 @@ def route(x, router, top_k: int, norm_topk: bool = True, *, scoring: str = "soft
     return shard_map(local, (logits,), (pl,), (pl, k_pl, k_pl))
 
 
+@spans.traced("repro_torch.moe.route")
+def _route(x, router, bias, top_k: int, n_experts: int, norm_topk: bool, scoring: str,
+           routed_scale: float, seq_rows: int):
+    """``(weights, ids, aux)``: :func:`route`'s weights and ids of tokens
+    ``x (T, D)`` and the balance loss of their routing, the Switch loss or,
+    with ``seq_rows``, the sequence-wise loss over that many rows."""
+    probs, weights, ids = route(x, router, top_k, norm_topk, scoring=scoring, bias=bias,
+                                routed_scale=routed_scale)
+    if seq_rows:
+        return weights, ids, sequence_balance_loss(probs, ids, n_experts, seq_rows)
+    return weights, ids, router_load_balancing_loss(probs, ids, n_experts)
+
+
 def expert_positions(ids_flat: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Position of each routed pair among the earlier pairs of its expert.
 
@@ -211,6 +222,7 @@ def expert_positions(ids_flat: torch.Tensor, n_experts: int) -> torch.Tensor:
     return torch.empty_like(ids_flat).scatter_(0, order, ranks)
 
 
+@spans.traced("repro_torch.moe.dispatch")
 def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
              n_shards: int = 1, experts: Optional[tuple[int, int]] = None):
     """Capacity slabs of the routed pairs of tokens ``x (T, D)`` with expert
@@ -227,7 +239,9 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
     Returns ``(slab (n, capacity, D), rows (T * k,), keep (T * k,))``: the
     slab row of each pair and whether it was kept.  A dropped pair's row is
     the spare row ``n * capacity`` past the slabs; unfilled slab rows, and
-    so every row of an expert no pair chose, are zeros.
+    so every row of an expert no pair chose, are zeros.  Counts the pairs
+    kept (``moe.kept_pairs``) and the slots they were kept in
+    (``moe.slots``).
     """
     t, top_k = ids.shape
     n_pairs = t * top_k
@@ -247,42 +261,33 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
     pair_token = torch.arange(n_pairs, device=x.device) // top_k
     slab = x.new_zeros((n_rows + 1, x.shape[1]))
     slab[rows] = x[pair_token]
+    if spans.is_on():
+        spans.count("moe.kept_pairs", keep.sum())
+        spans.count("moe.slots", n_rows)
     return slab[:n_rows].view(n_exp, capacity, x.shape[1]), rows, keep
 
 
 def _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts: int, capacity: int,
-                    n_shards: int, e0: Optional[int], experts, sum_slab=None, own=None):
+                    n_shards: int, e0: Optional[int], experts, own=None):
     """The routed experts' combined output ``(T, D)`` in float32 of tokens
     ``x (T, D)``: dispatch, the expert FFN ``experts`` over the slabs, each
     kept pair's output gathered back and weighted.  ``e0`` set: the weights
     hold experts ``e0 ..`` only, and pairs routed elsewhere add nothing.
-    ``sum_slab`` set: the weights hold a slice of the F dim, and
-    ``sum_slab`` sums the partial output slabs over the ranks holding the
-    other slices.  ``own`` set: ``weights`` are those of tokens ``own ..
-    own + len(weights)`` only, whose outputs alone are combined.  Each of
-    the three runs under its span (``repro_torch.moe.dispatch``,
-    ``.experts``, ``.combine``); the dispatch counts the pairs it kept
-    (``moe.kept_pairs``) and the slots it filled them into (``moe.slots``)."""
-    top_k = ids.shape[1]
+    ``own`` set: ``weights`` are those of tokens ``own .. own +
+    len(weights)`` only, whose outputs alone are combined."""
     window = None if e0 is None else (e0, w_gate.shape[0])
-    with spans.span("repro_torch.moe.dispatch") as sp:
-        (x,) = sp.inputs(x)
-        slab, rows, keep = dispatch(x, ids, n_experts, capacity, n_shards, window)
-        slab = sp.output(slab)
-        if spans.is_on():
-            spans.count("moe.kept_pairs", keep.sum())
-            spans.count("moe.slots", slab.shape[0] * capacity)
-    with spans.span("repro_torch.moe.experts") as sp:
-        slab, w_gate, w_up, w_down = sp.inputs(slab, w_gate, w_up, w_down)
-        out_slab = experts(slab, w_gate, w_up, w_down)
-        if sum_slab is not None:
-            out_slab = sum_slab(out_slab)
-        out_slab = sp.output(out_slab)
-    with spans.span("repro_torch.moe.combine") as sp:
-        out_slab, weights = sp.inputs(out_slab, weights)
-        return sp.output(_combine(out_slab, rows, keep, weights, capacity, top_k, own))
+    slab, rows, keep = dispatch(x, ids, n_experts, capacity, n_shards, window)
+    out_slab = _expert_ffn(slab, w_gate, w_up, w_down, experts)
+    return _combine(out_slab, rows, keep, weights, capacity, ids.shape[1], own)
 
 
+@spans.traced("repro_torch.moe.experts")
+def _expert_ffn(slab, w_gate, w_up, w_down, experts):
+    """The expert FFN ``experts`` over the capacity slabs."""
+    return experts(slab, w_gate, w_up, w_down)
+
+
+@spans.traced("repro_torch.moe.combine")
 def _combine(out_slab, rows, keep, weights, capacity: int, top_k: int, own):
     """Each kept pair's row of ``out_slab`` gathered back, weighted by its
     router weight and summed over the token's pairs, in float32."""
@@ -376,7 +381,10 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
         w_pls = [placements(ws[0].shape, ("model" if split else None, None, None))] * 3
     names = mesh.mesh_dim_names
     y_pl = [Partial() if split and names[d] == tp else p for d, p in enumerate(rows_pl)]
-    sum_slab = (lambda t: slab_sum(t.float(), f_dims, mesh)) if f_dims else None
+
+    def ffn(*a):  # with the F dim split, the partial output slabs summed over its ranks
+        out = experts(*a)
+        return slab_sum(out.float(), f_dims, mesh) if f_dims else out
 
     def local(x, ids, weights, w_gate, w_up, w_down):
         if expert_perm is not None:
@@ -389,7 +397,7 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
                 own = own * mesh.size(d) + mesh.get_local_rank(d)
             own *= weights.shape[0]
         return _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts,
-                               capacity // ways, ns // ways, e0, experts, sum_slab, own)
+                               capacity // ways, ns // ways, e0, ffn, own)
 
     y = shard_map(local, (x, ids, weights, *ws), (x_pl, x_pl, rows_pl, *w_pls), y_pl)
     return reduce_rows(y)
@@ -426,16 +434,9 @@ def moe_ffn(
     only)."""
     t, d = x.shape
     x = grad_layout(x, "batch", None)
-    with spans.span("repro_torch.moe.route") as sp:
-        xr, router = sp.inputs(x, params["router"])
-        bias = params["router_bias"] if "router_bias" in params else None
-        probs, weights, ids = route(xr, router, top_k, norm_topk, scoring=scoring, bias=bias,
-                                    routed_scale=routed_scale)
-        if seq_rows:
-            aux = sequence_balance_loss(probs, ids, n_experts, seq_rows)
-        else:
-            aux = router_load_balancing_loss(probs, ids, n_experts)
-        weights, aux = sp.output(weights, aux)
+    bias = params["router_bias"].detach() if "router_bias" in params else None
+    weights, ids, aux = _route(x, params["router"], bias, top_k, n_experts, norm_topk, scoring,
+                               routed_scale, seq_rows)
     ns = n_dispatch_shards
     if ns < 1 or t % ns or capacity % ns or capacity // ns < top_k:
         ns = 1  # decode-sized batches: slices would be thinner than top_k
@@ -454,20 +455,17 @@ def moe_ffn(
     y = y.to(x.dtype)
 
     if "shared" in params:
-        y = y + _shared_experts(x, params["shared"])
+        sh = params["shared"]
+        y = y + _shared_experts(x, sh["w_gate"], sh["w_up"], sh["w_down"],
+                                sh["gate"] if "gate" in sh else None)
     return y, aux
 
 
-def _shared_experts(x, params):
+@spans.traced("repro_torch.moe.shared")
+def _shared_experts(x, w_gate, w_up, w_down, gate=None):
     """The shared experts' SwiGLU of every token ``x (T, D)``, under their
-    sigmoid gate where they have one (``gate``), under the span
-    ``repro_torch.moe.shared``."""
-    names = [k for k in ("w_gate", "w_up", "w_down", "gate") if k in params]
-    with spans.span("repro_torch.moe.shared") as sp:
-        x, *ws = sp.inputs(x, *(params[k] for k in names))
-        w = dict(zip(names, ws))
-        g, u = col_linear(x, (w["w_gate"], w["w_up"]), dot_f32)
-        ys = row_linear((F.silu(g) * u).to(x.dtype), w["w_down"], linear)
-        if "gate" in w:
-            ys = (ys.float() * torch.sigmoid(dot_f32(x, whole(w["gate"])))).to(x.dtype)  # (T, 1)
-        return sp.output(ys)
+    sigmoid gate where they have one (``gate (D, 1)``)."""
+    ys = swiglu(x, w_gate, w_up, w_down)
+    if gate is not None:
+        ys = (ys.float() * torch.sigmoid(dot_f32(x, whole(gate)))).to(x.dtype)
+    return ys

@@ -1,5 +1,5 @@
-"""Dense, MoE, SSM, hybrid and encoder-decoder stacks for serving (port of
-``repro.models.transformer``).
+"""Dense, MoE, SSM, hybrid and encoder-decoder stacks for serving and
+training (port of ``repro.models.transformer``).
 
 The reference scans one stacked layer body with ``lax.scan``; here each layer
 is its own :class:`~repro_torch.models.params.Params` module and a Python
@@ -20,10 +20,11 @@ The cache holds per-layer K/V (``dense``, ``moe``), conv and SSD states
 ``cross_k``/``cross_v`` (``encdec``).  ``forward_decode`` updates the cache in
 place (the reference returns a new cache; the port saves the copy).
 
-Training (``forward_train``, every family) runs no kernel, as the
-reference's ``forward_train`` runs none: attention is the differentiable
-:func:`~repro_torch.models.layers.chunked_attention` and the experts the
-``einsum`` products, :func:`~repro_torch.models.layers.swiglu` over the slabs.  With
+Training (``forward_train``, every family) runs no serving kernel:
+attention is the differentiable :func:`~repro_torch.models.layers.chunked_attention`
+(the flash training kernels for bf16 on a card, the reference's chunked loop
+elsewhere), the experts :func:`~repro_torch.models.layers.swiglu` over the
+slabs (gate and up through :func:`~repro_torch.models.layers.dot_f32`).  With
 ``cfg.remat`` each block (each period for ``hybrid``) runs under
 ``torch.utils.checkpoint``, the reference's ``_maybe_remat``.  Its compute
 copies come from :func:`cast_params_for_train`, which casts inside

@@ -1,10 +1,10 @@
 """Spans and counters of the train step: where its host and device time go.
 
-Tracing is off by default, and then :func:`span` costs a check of two
-module-level flags and returns one shared null context, which opens no
-profiler range, records no event and allocates nothing.  It is on while a
-``torch.profiler`` session records, or between :func:`enable` and
-:func:`disable`.  While it is on, a span
+Tracing is off by default: then a :func:`traced` function is called
+directly, and :func:`span` costs a check of two module-level flags and
+returns one shared null context; neither opens a profiler range, records an
+event or allocates.  It is on while a ``torch.profiler`` session records,
+or between :func:`enable` and :func:`disable`.  While it is on, a span
 
   * opens ``torch.profiler.record_function(name)``, so that it sits in any
     profiler trace beside the device's kernels, on the profiler's clock;
@@ -16,26 +16,29 @@ profiler range, records no event and allocates nothing.  It is on while a
   * in a step on a CUDA device, records a timing event on the current
     stream at each end.
 
-**Backward halves.**  A span given tensors through :meth:`_Span.inputs` and
-:meth:`_Span.output` puts an identity ``autograd.Function`` on each of them
-(only where autograd will differentiate them, and never in a recompute,
-whose graph is not differentiated).  In the backward pass the first mark to
-run records the half's start and the last input mark its end: a record of
-the same name in phase ``backward``.  The marks change no number.
+**Backward halves.**  :func:`traced` puts an identity ``autograd.Function``
+on each argument and result that autograd will differentiate (never in a
+recompute, whose graph is not differentiated).  In the backward pass the
+first mark to run records the half's start and the last argument mark its
+end: a record of the same name in phase ``backward``.  The marks change no
+number.  :func:`span` marks nothing (the train step's parts, :data:`BLOCK`).
 
 **Steps.**  Records are kept for the train step that :func:`step` opens, in
 a ring of the last :data:`RING` steps; outside a step a span only opens its
 profiler range.  :func:`count` adds to the step's counters (a device tensor
-is added on the device and never read inside the step).  :func:`steps`
-synchronises once and returns each step's spans and counters as numbers.
-Device times are placed on the step's own device timeline (milliseconds
-from the step's first event), so that overlapping records of one name are
-counted once by whoever sums them.  In a step on the CPU every device time
-is None.
+is added on the device and never read inside the step): ``train_step.syncs``
+(:func:`sync`) and the model's ``moe.kept_pairs``, ``moe.slots``,
+``dot_f32.tensor_core``, ``dot_f32.float32``, ``attention.fused`` and
+``attention.chunked``.  :func:`steps` synchronises once and returns each
+step's spans and counters as numbers.  Device times are placed on the step's
+own device timeline (milliseconds from the step's first event), so that
+overlapping records of one name are counted once by whoever sums them.  In
+a step on the CPU every device time is None.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import threading
 import time
 from typing import Optional
@@ -45,7 +48,7 @@ from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import record_function
 
 __all__ = ["BLOCK", "NULL", "RING", "clear", "count", "disable", "enable", "is_on", "length", "span",
-           "step", "steps", "subtract", "sync", "union"]
+           "step", "steps", "subtract", "sync", "traced", "union"]
 
 #: Train steps kept in memory.
 RING = 16
@@ -86,12 +89,6 @@ class _Null:
     def __exit__(self, *exc):
         return None
 
-    def inputs(self, *ts):
-        return ts
-
-    def output(self, *ts):
-        return ts[0] if len(ts) == 1 else ts
-
 
 NULL = _Null()
 
@@ -103,6 +100,32 @@ def span(name: str, phase: Optional[str] = None):
     if not (_forced or _autograd_profiler._is_profiler_enabled):
         return NULL
     return _Span(name, phase)
+
+
+def traced(name: str):
+    """Decorate a function to run each call under the span ``name``, its
+    backward half included: each argument (positional or keyword) and each
+    result (alone or in a tuple) that autograd will differentiate is marked.
+    While tracing is off the function is called directly."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not (_forced or _autograd_profiler._is_profiler_enabled):
+                return fn(*args, **kwargs)
+            with _Span(name, None) as sp:
+                # marks only where the graph they sit in is differentiated later
+                if sp.step is None or sp.rec.phase == "recompute" or not torch.is_grad_enabled():
+                    return fn(*args, **kwargs)
+                half = _Half(name, sp.step)
+                out = fn(*(_mark(a, half, True) for a in args),
+                         **{k: _mark(v, half, True) for k, v in kwargs.items()})
+                if isinstance(out, tuple):
+                    return tuple(_mark(t, half, False) for t in out)
+                return _mark(out, half, False)
+
+        return call
+
+    return wrap
 
 
 def sync(site: str):
@@ -197,15 +220,11 @@ def _parent(stack: list, st: Optional[_Step]):
 
 
 class _Span:
-    __slots__ = ("rec", "rf", "step", "syncs", "half")
+    __slots__ = ("rec", "rf", "step", "syncs")
 
     def __init__(self, name: str, phase: Optional[str], syncs: int = 0):
-        back = _in_backward()
-        self.rec = _Record(name, phase or ("recompute" if back else "forward"), None)
-        self.step, self.syncs, self.half = _current, syncs, None
-        # Marks exist where the graph they sit in is differentiated later.
-        if not back and torch.is_grad_enabled() and self.step is not None:
-            self.half = _Half(name, self.step)
+        self.rec = _Record(name, phase or ("recompute" if _in_backward() else "forward"), None)
+        self.step, self.syncs = _current, syncs
 
     def __enter__(self):
         stack = _stack()
@@ -230,23 +249,12 @@ class _Span:
                 self.step.add("train_step.syncs", self.syncs)
         return None
 
-    def inputs(self, *ts):
-        """``ts`` with a mark on each that autograd will differentiate: the
-        last of them to be reached in the backward pass ends the half."""
-        if self.half is None:
-            return ts
-        return tuple(_Mark.apply(t, self.half, True) if _differentiated(t) else t for t in ts)
 
-    def output(self, *ts):
-        """``ts`` (one tensor, or a tuple of several) with a mark on each
-        that autograd will differentiate: the first reached starts the half."""
-        if self.half is not None:
-            ts = tuple(_Mark.apply(t, self.half, False) if _differentiated(t) else t for t in ts)
-        return ts[0] if len(ts) == 1 else ts
-
-
-def _differentiated(t) -> bool:
-    return isinstance(t, torch.Tensor) and t.requires_grad
+def _mark(t, half: "_Half", is_input: bool):
+    """``t``, with a mark of ``half`` where autograd will differentiate it."""
+    if isinstance(t, torch.Tensor) and t.requires_grad:
+        return _Mark.apply(t, half, is_input)
+    return t
 
 
 class _StepSpan(_Span):

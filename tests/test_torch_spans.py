@@ -1,11 +1,13 @@
 """The train step's spans and counters (``repro_torch.runtime.spans``) on the CPU.
 
-Off, every span site gets one shared null context and a step stores
-nothing; on (under ``torch.profiler`` or :func:`spans.enable`), a reduced
-qwen3-moe step with remat stores every span with its parent and phase, the
-MoE counters count each forward pass once, and the step's numbers are
-bit for bit those of a step with tracing off.  Device times are None here:
-the structure is checked by the host clock.
+Off, every span site gets one shared null context, a traced function is
+called directly, and a step stores nothing; on (under ``torch.profiler`` or
+:func:`spans.enable`), a reduced qwen3-moe step with remat stores every span
+with its parent and phase, the MoE counters count each forward pass once,
+and the step's numbers are bit for bit those of a step with tracing off; a
+reduced moonlight step's latent-attention and shared-expert spans sit where
+qwen's MoE spans do.  Device times are None here: the structure is checked
+by the host clock.
 """
 from __future__ import annotations
 
@@ -37,8 +39,8 @@ def _clean():
     spans.clear()
 
 
-def _cfg(compute_dtype="float32"):
-    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+def _cfg(compute_dtype="float32", arch="qwen3-moe-30b-a3b"):
+    cfg = get_config(arch, reduced=True)
     assert cfg.remat
     return dataclasses.replace(cfg, compute_dtype=compute_dtype)
 
@@ -55,13 +57,12 @@ def _stepper(cfg):
     return model, opt, make_train_step(model, opt, num_microbatches=N_MB)
 
 
-@pytest.fixture(scope="module")
-def traced_step():
-    """One reduced train step under ``torch.profiler`` on the CPU: the
-    recorded step, and its counters against an independent count."""
+def _profiled_step(arch: str) -> dict:
+    """One reduced train step of ``arch`` under ``torch.profiler`` on the
+    CPU: the recorded step, and its counters against an independent count."""
     spans.disable()
     spans.clear()
-    cfg = _cfg()
+    cfg = _cfg(arch=arch)
     model, opt, step = _stepper(cfg)
     batch = _batch(cfg)
     state = init_train_state(model, opt, 0)
@@ -72,6 +73,16 @@ def traced_step():
     names = {e.key for e in prof.key_averages()}
     spans.clear()
     return {"cfg": cfg, "steps": recorded, "kept": kept, "profiled": names}
+
+
+@pytest.fixture(scope="module")
+def traced_step():
+    return _profiled_step("qwen3-moe-30b-a3b")
+
+
+@pytest.fixture(scope="module")
+def traced_moonlight_step():
+    return _profiled_step("moonlight-16b-a3b")
 
 
 def _independent_kept_pairs(model, state, batch) -> int:
@@ -102,13 +113,22 @@ def _independent_kept_pairs(model, state, batch) -> int:
 
 
 @pytest.mark.parametrize("site", ["span", "sync", "step"])
-def test_off_returns_the_shared_null_context(site):
+def test_off_returns_the_shared_null_context(site, monkeypatch):
+    """Off, each context site is the one null context, and a traced
+    function called inside it returns its own result object and enters no
+    profiler range."""
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range was entered while tracing is off")
+
+    monkeypatch.setattr(spans, "record_function", refuse)
     ctx = {"span": lambda: spans.span("repro_torch.dot_f32"), "sync": lambda: spans.sync("x"),
            "step": lambda: spans.step("cpu")}[site]()
     assert ctx is spans.NULL
-    with ctx as sp:
-        x = torch.ones(2, requires_grad=True)
-        assert sp.inputs(x)[0] is x and sp.output(x) is x
+    x = torch.ones(2, requires_grad=True)
+    result = (x * 2, "label")
+    traced = spans.traced("repro_torch.dot_f32")(lambda a, *, b: result)
+    with ctx:
+        assert traced(x, b=x) is result
 
 
 def test_off_a_step_stores_nothing_and_enters_no_profiler_range(monkeypatch):
@@ -159,6 +179,26 @@ def test_on_each_span_with_its_parent_and_phase(traced_step, name):
     assert name in traced_step["profiled"]  # a profiler range of the same name
 
 
+MOONLIGHT = {name: {(P + "block", "forward"), (P + "block", "recompute"),
+                    (TS + ".backward", "backward")}
+             for name in (P + "mla.project", P + "moe.shared")}
+
+
+@pytest.mark.parametrize("name", sorted(MOONLIGHT))
+def test_on_moonlight_span_with_its_parent_and_phase(traced_moonlight_step, name):
+    """The reduced moonlight step's latent attention and shared experts,
+    each in every remat block's forward and recompute and in the backward
+    pass, with the per-pass counts of qwen's MoE spans."""
+    (st,) = traced_moonlight_step["steps"]
+    got = [(s["parent"], s["phase"]) for s in st["spans"] if s["name"] == name]
+    assert set(got) == MOONLIGHT[name]
+    cfg = traced_moonlight_step["cfg"]
+    layers = cfg.n_layers if name.endswith("project") else cfg.n_layers - cfg.first_k_dense
+    for phase in ("forward", "recompute", "backward"):
+        assert sum(1 for _, ph in got if ph == phase) == layers * N_MB
+    assert name in traced_moonlight_step["profiled"]
+
+
 def test_on_no_other_span_and_counts_per_pass(traced_step):
     (st,) = traced_step["steps"]
     assert {s["name"] for s in st["spans"]} == set(EXPECTED)
@@ -207,6 +247,28 @@ def test_tracing_changes_no_number(compute_dtype):
         assert torch.equal(p0[n][1], p1[n][1]), n
     assert all(torch.equal(a, b) for a, b in zip(m0, m1))
     assert len(spans.steps()) == 1
+
+
+@pytest.mark.parametrize("by", ["position", "keyword"])
+def test_a_traced_function_given_a_detached_tensor_records_its_backward_half(by):
+    """A traced function given one tensor autograd differentiates and one
+    detached marks only the first: its backward half ends when that mark is
+    reached, and a non-tensor in its returned tuple passes through."""
+    spans.enable()
+
+    @spans.traced("repro_torch.t")
+    def scaled(x, y):
+        return x * y, "label"
+
+    w = torch.ones(3, requires_grad=True)
+    c = torch.full((3,), 2.0, requires_grad=True).detach()
+    with spans.step("cpu"):
+        out, label = scaled(w, c) if by == "position" else scaled(x=w, y=c)
+        out.sum().backward()
+    (st,) = spans.steps()
+    got = [(s["parent"], s["phase"]) for s in st["spans"] if s["name"] == "repro_torch.t"]
+    assert sorted(got) == [(TS, "backward"), (TS, "forward")]
+    assert label == "label" and torch.equal(w.grad, c)
 
 
 def test_ring_keeps_the_last_steps():
