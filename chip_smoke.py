@@ -113,8 +113,9 @@ The training path (``training``): ``run_training`` on qwen3-moe-30b-a3b at
 its published widths, layers 0-3 (3,114,814,464 parameters), f32 masters,
 bf16 compute, remat, its own AdamW and warmup-cosine, 6 steps of 8 x 2,048
 synthetic tokens in 2 microbatches, counts set to 0 just before and read
-just after: every loss and grad norm finite, no kernel launched but the
-training attention's (the reference trains through no Pallas kernel, and
+just after: every loss and grad norm finite, no kernel launched but
+AdamW's (a norm a step, an update a leaf) and the training attention's
+(the reference trains through no Pallas kernel, and
 the port's einsum experts are differentiable PyTorch; its bf16 attention
 takes the flash training forward and backward, a forward each for the pass
 and for remat's recompute and a backward each, a layer and microbatch),
@@ -166,7 +167,7 @@ the adaptive scheduler (residual under 1e-3; the kernel runs on the
 iterations the scheduler gives it), serve_lm with its default reduced
 granite-3-8b (flash attention), with reduced mamba2-2.7b and with reduced
 jamba-1.5-large-398b, and train_lm (reduced qwen3-moe-30b-a3b, 20 steps,
-the loss falls, no kernel launched).
+the loss falls, AdamW's kernels alone launched).
 
 The build phase also counts the HGMMA (wgmma) and UTMALDG (TMA load)
 instructions in each kernel of the flash-attention and expert-FFN libraries,
@@ -274,18 +275,23 @@ SYMBOLS = {"spmv_software_cache": ("smem_kernel",), "spmv_streaming": ("stream_k
            "flash_attention": ("flash_bf16_kernel",),
            "moe_mlp": ("gemm_bf16_kernel", "gemm_swap_bf16_kernel"),
            "flash_attention_train": ("flash_bf16_kernel",),
-           "flash_attention_backward": ("dot_rows_kernel", "flash_dkv_kernel", "flash_dq_kernel")}
-LIBRARIES = ("ep_spmv", "flash_attention", "flash_attention_bwd", "moe_mlp")  # csrc/<name>.cu
+           "flash_attention_backward": ("dot_rows_kernel", "flash_dkv_kernel", "flash_dq_kernel"),
+           "adamw_norm": ("adamw_norm_partial_kernel", "adamw_norm_sum_kernel",
+                          "adamw_norm_finish_kernel"),
+           "adamw_update": ("adamw_update_kernel",)}
+# The libraries, each built from csrc/<name>.cu
+LIBRARIES = ("adamw", "ep_spmv", "flash_attention", "flash_attention_bwd", "moe_mlp")
 # The SASS instructions counted in every kernel (cuobjdump -sass), by name
 # and pattern: Hopper's tensor-core and TMA-load instructions, and 16-byte
 # global loads with any cache qualifier.  A kernel whose name holds a key of
 # SASS_NEEDS must contain each of its instructions: the bf16 LM kernels run
-# on wgmma and TMA, the streaming SpMV kernel streams its tasks 16 bytes a
-# load.
+# on wgmma and TMA, the streaming SpMV kernel streams its tasks and AdamW's
+# norm and update their tensors 16 bytes a load.
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
             "LDG.128": r"\bLDG\.E\.(?:\w+\.)*128\b"}
 SASS_NEEDS = {"bf16": ("HGMMA", "UTMALDG"), "flash_dkv_kernel": ("HGMMA", "UTMALDG"),
-              "flash_dq_kernel": ("HGMMA", "UTMALDG"), "stream_kernel": ("LDG.128",)}
+              "flash_dq_kernel": ("HGMMA", "UTMALDG"), "stream_kernel": ("LDG.128",),
+              "adamw_norm_partial_kernel": ("LDG.128",), "adamw_update_kernel": ("LDG.128",)}
 # The training attention at each benchmark cell's per-call shape: (B, H, Hkv,
 # S = T, Dh, Dv), causal self-attention.
 TRAIN_ATTENTION = {"qwen3moe.train": (4, 32, 4, 2048, 128, 128),
@@ -908,11 +914,12 @@ def _held_to(label, got, want, tol, whole):
 
 
 def _kernel_entry(name, replaces, source, launches, run, plain, library, nbytes, flops,
-                  shapes, *, tol, peak_flops, iters, outputs=None, whole=False):
+                  shapes, *, tol, peak_flops, iters, outputs=None, whole=False, wrappers=None):
     """One kernel against its twin on the same card tensors, then timed.
 
     ``ms`` is CUDA events over ``iters`` back-to-back launches (never below
-    the wrapper's host cost per launch); ``device_ms`` the kernel alone from
+    the wrapper's host cost per launch); ``device_ms`` the kernel alone (the
+    kernels of every wrapper in ``wrappers``, default ``name``'s) from
     the profiler's trace; ``bound_ms`` the larger of ``nbytes`` over the
     memory rate and ``flops`` over ``peak_flops``.  Each output is held to
     :func:`_held_to` (``whole``: the scaled limit over the whole tensor's
@@ -934,7 +941,8 @@ def _kernel_entry(name, replaces, source, launches, run, plain, library, nbytes,
     ms = _time_ms(run, iters)
     reps = max(5, iters // 5)
     for _ in range(3):  # a trace now and then holds no device events of a short kernel
-        device_ms = sum(v for key, v in _device_ms(run, reps).items() if _is_kernel(name, key))
+        device_ms = sum(v for key, v in _device_ms(run, reps).items()
+                        if any(_is_kernel(w, key) for w in wrappers or (name,)))
         if device_ms:
             break
     bound_ms, bound_by = _bound(nbytes, flops, peak_flops)
@@ -1106,7 +1114,92 @@ def phase_train_kernels():
                 entries[en["name"]][cell] = {**en, "path": None}
         del q, k, v, do, out, lse, want_lse, qg, kg, vg, lib_out
         torch.cuda.empty_cache()
-    return list(entries.values())
+    adamw = _adamw_entry()
+    _emit({"phase": "train_kernels", **adamw})
+    return [*entries.values(), adamw]
+
+
+def _adamw_entry():
+    """AdamW's kernels (``adamw_norm``, then ``adamw_update`` on each leaf) at
+    the qwen cell's own leaf shapes (``TRAIN``'s cut: 51 float32 leaves,
+    3,114,814,464 parameters), one optimizer step timed, against the loop
+    of ATen passes (``global_norm`` and ``_plain_update``, the kernels' twin)
+    on the same tensors.  Each run returns the norm, which both hold to
+    ``TOL``; the update itself is held on copies of the four smallest leaves
+    and the largest (``update_err``: of p, m and v, the largest difference
+    between the kernel's change and the loop's over the loop's largest
+    change, given the same clip scale, to ``TOL``: a dropped decay or a
+    wrong lr reads ~0.1 or more, however small the step).  Bound: 32 bytes a
+    parameter (g read for the norm; p, g, m, v read and p, m, v written).
+    The library, as a yardstick only, ``torch._fused_adamw_`` on the same
+    tensors (no norm, no clip); the port never calls it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw_norm, adamw_update
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, global_norm, warmup_cosine
+    from repro_torch.optim.adamw import _clip_scale, _plain_update
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN["n_layers"])
+    shapes = [p.shape for p in Model(cfg, "meta").init(0).parameters()]
+    opt = AdamWConfig(lr=warmup_cosine(3e-4, 2, TRAIN["steps"]))
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    ps = [_randn(gen, sh, torch.float32) for sh in shapes]
+    gs = [_randn(gen, sh, torch.float32, 1e-4) for sh in shapes]
+    ms = [_randn(gen, sh, torch.float32, 1e-5) for sh in shapes]
+    vs = [_randn(gen, sh, torch.float32, 1e-5).square_() for sh in shapes]
+    count = torch.full((), 7, dtype=torch.int32, device=DEVICE)
+    lr, cf = opt.lr_at(count), count.float()
+    bc1, bc2 = 1.0 - torch.pow(opt.b1, cf), 1.0 - torch.pow(opt.b2, cf)
+    hyper = {"b1": opt.b1, "b2": opt.b2, "eps": opt.eps, "weight_decay": opt.weight_decay}
+    n = sum(p.numel() for p in ps)
+
+    def fused():
+        norm, scale = adamw_norm(gs, opt.clip_norm)
+        for leaf in zip(ps, gs, ms, vs):
+            adamw_update(*leaf, scale, lr, bc1, bc2, **hyper)
+        return norm
+
+    def plain():
+        norm = global_norm(gs)
+        scale = _clip_scale(opt, norm)
+        for leaf in zip(ps, gs, ms, vs):
+            _plain_update(opt, *leaf, scale, lr, bc1, bc2)
+        return norm
+
+    steps = [torch.full((), 7.0, device=DEVICE) for _ in ps]
+
+    def library():
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=3e-4, beta1=opt.b1, beta2=opt.b2,
+                            weight_decay=opt.weight_decay, eps=opt.eps, amsgrad=False,
+                            maximize=False)
+
+    order = sorted(range(len(ps)), key=lambda i: ps[i].numel())
+    _, scale = adamw_norm(gs, opt.clip_norm)
+    errs = []
+    for i in order[:4] + order[-1:]:
+        a = [x[i].clone() for x in (ps, gs, ms, vs)]
+        b = [x.clone() for x in a]
+        adamw_update(*a, scale, lr, bc1, bc2, **hyper)
+        _plain_update(opt, *b, scale, lr, bc1, bc2)
+        for j, old in ((0, ps[i]), (2, ms[i]), (3, vs[i])):  # p, m and v: their changes
+            da, db = a[j].sub_(old), b[j].sub_(old)
+            errs.append(float((da - db).abs().max() / db.abs().max().clamp(min=1e-30)))
+        del a, b
+    if max(errs) > TOL:
+        raise AssertionError(f"adamw_update against the loop: {max(errs)}")
+    entry = _kernel_entry(
+        "adamw_update", "none: src/repro/optim/adamw.py adamw_update (plain jnp)",
+        "src/repro_torch/kernels/csrc/adamw.cu", 0, fused, plain, library, 32 * n, 0,
+        {"cell": "qwen3moe.train", "leaves": len(ps), "params": n, "dtype": "float32"},
+        tol=TOL, peak_flops=F32_FLOPS, iters=5, wrappers=("adamw_norm", "adamw_update"))
+    entry["update_err"] = max(errs)
+    del ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    return entry
 
 
 def phase_lm_kernels(cfg, state, launches):
@@ -1560,9 +1653,10 @@ def phase_training():
     step's bound (:func:`_train_bound`); then profiles one more step
     (device busy time by kernel; its ratio to the steady step is the device's
     busy share).  Fails unless every loss and grad norm is finite, the
-    kernels launched were the training attention's alone (one backward per
+    kernels launched were the training attention's (one backward per
     layer and microbatch of each step, and a forward for it and for remat's
-    recompute), and every leaf of the last step holds a nonzero gradient (in
+    recompute) and AdamW's (a norm a step, an update a leaf and step) alone,
+    and every leaf of the last step holds a nonzero gradient (in
     the reference's reduced step every leaf of this family does; a detached
     cast or a forward-only kernel would leave leaves without one).  Returns
     the path's launch counts.
@@ -1595,9 +1689,11 @@ def phase_training():
     if n_params != TRAIN_PARAMS or n_params != param_count(cfg)["total"]:
         raise AssertionError(f"training: {n_params} parameters, expected {TRAIN_PARAMS}")
     calls = t["steps"] * t["n_layers"] * t["microbatches"]
+    leaves = len(list(state.params.parameters()))
     want = {name: 0 for name in launches}
     want.update(flash_attention_train=calls * (2 if cfg.remat else 1),
-                flash_attention_backward=calls)
+                flash_attention_backward=calls, adamw_norm=t["steps"],
+                adamw_update=t["steps"] * leaves)
     if launches != want:
         raise AssertionError(f"training launched kernels {launches}, expected {want}")
     if not all(np.isfinite(h[k]) for h in history for k in ("loss", "grad_norm")):
@@ -1837,6 +1933,7 @@ def phase_examples():
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
 
     root = Path(__file__).resolve().parent / "examples"
     out = {"phase": "examples"}
@@ -1866,7 +1963,10 @@ def phase_examples():
         elif name == "train_lm":
             rec = {"steps": len(result), "loss_first": result[0]["loss"],
                    "loss_last": result[-1]["loss"]}
-            want = {}  # the train path runs no kernel
+            # float32 attention takes the chunked loop; AdamW takes its kernels
+            leaves = len(list(Model(get_config(LM_ARCH, reduced=True), "meta").init(0)
+                              .parameters()))
+            want = {"adamw_norm": len(result), "adamw_update": len(result) * leaves}
         else:
             cfg = get_config(extra[-1] if extra else "granite-3-8b", reduced=True)
             tokens, stats = result
@@ -2036,6 +2136,7 @@ def _sharded_train(mesh):
            "microbatches": t["microbatches"], "lr": CHECK_LR, "compute_dtype": cfg.compute_dtype,
            "loss": float(m0["loss"]), "loss_err": abs(float(m1["loss"]) - float(m0["loss"])),
            "grad_rel_err": grad_err, "leaves": leaves,
+           "grad_norm_err": abs(float(m1["grad_norm"]) / float(m0["grad_norm"]) - 1),
            "launches_plain": launches0, "launches": launches1,
            "placements_w_gate": str(state.params.blocks[0].ffn.moe.w_gate.placements),
            "warm_step_ms": (time.perf_counter() - t0) * 1e3,
@@ -2227,7 +2328,8 @@ def phase_sharded(dryrun_alive: int):
     ``training``'s cut (layers 0-3, 8 x 2,048, 2 microbatches, AdamW at
     CHECK_LR) in float32 compute (``SHARDED_TRAIN``) unsharded, then under
     the train rules from the same seed: the loss and every gradient leaf
-    (relative to its largest magnitude) within E2E_TOL, no kernel launched;
+    (relative to its largest magnitude) and the grad norm within E2E_TOL,
+    AdamW's kernels alone launched (a norm, an update a leaf);
     a second sharded step is timed and the peak memory of both read.
     (3) That state (37.4 GB of f32 masters and moments) checkpointed by
     ``CheckpointManager`` on the local disk (free disk and host memory
@@ -2253,8 +2355,13 @@ def phase_sharded(dryrun_alive: int):
         raise AssertionError(f"sharded serving launches: {serve}")
     if train["loss_err"] > E2E_TOL or train["grad_rel_err"] > E2E_TOL:
         raise AssertionError(f"sharded train step differs from unsharded: {train}")
-    if any(train["launches"].values()) or any(train["launches_plain"].values()):
-        raise AssertionError(f"the train step launched kernels: {train}")
+    # float32 attention takes the chunked loop; AdamW's kernels take the norm
+    # (of each rank's shards, summed over the mesh) and update each leaf
+    want = {k: 0 for k in train["launches"]} | {"adamw_norm": 1, "adamw_update": train["leaves"]}
+    if train["launches"] != want or train["launches_plain"] != want:
+        raise AssertionError(f"the train step launched other kernels: {train}")
+    if train["grad_norm_err"] > E2E_TOL:
+        raise AssertionError(f"the sharded grad_norm differs from unsharded: {train}")
     ck = train["checkpoint"]
     if not (all(ck["round_trip_equal"].values()) and ck["next_step_equal"]):
         raise AssertionError(f"the sharded checkpoint's round trip is not bit-exact: {ck}")

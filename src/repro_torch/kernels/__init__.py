@@ -4,9 +4,12 @@
 the pack -> kernel -> combine entry points; ``flash_attention`` and
 ``moe_mlp`` the serving path's attention and expert-FFN kernels, and
 ``flash_attention_train`` / ``flash_attention_backward`` the training path's
-attention; ``ref`` the plain oracles (the attention and expert-FFN twins).  :func:`launch_counts` reads every
+attention; ``adamw_norm`` / ``adamw_update`` the optimizer's global norm and
+update (their twin is ``optim/adamw.py``'s loop); ``ref`` the plain oracles
+(the attention and expert-FFN twins).  :func:`launch_counts` reads every
 wrapper's launch count.
 """
+from .adamw import adamw_norm, adamw_update
 from .ep_spmv import (
     ep_combine,
     spmv_software_cache,
@@ -29,6 +32,8 @@ from .ops import (
 __all__ = [
     "BucketSpec",
     "PaddedOperands",
+    "adamw_norm",
+    "adamw_update",
     "ep_combine",
     "ep_spmv",
     "flash_attention",
@@ -48,7 +53,8 @@ __all__ = [
 ]
 
 _KERNELS = (spmv_software_cache, spmv_streaming, spmv_streaming_batched, ep_combine,
-            moe_mlp, flash_attention, flash_attention_train, flash_attention_backward)
+            moe_mlp, flash_attention, flash_attention_train, flash_attention_backward, adamw_norm,
+            adamw_update)
 
 
 def reset_launch_counts() -> None:

@@ -21,8 +21,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "count_meta", "find_nvcc", "launch",
-           "library", "meta_listeners", "ptxas_report", "sass"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "TRAIN_LIBRARIES", "build_all", "build_train",
+           "count_meta", "find_nvcc", "launch", "library", "meta_listeners", "ptxas_report", "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -101,6 +101,22 @@ def build_all(names=None) -> list[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return targets
+
+
+#: The sources the train step launches: its attention's forward and backward
+#: and AdamW's.
+TRAIN_LIBRARIES = ("adamw", "flash_attention", "flash_attention_bwd")
+_train_built = False
+
+
+def build_train() -> None:
+    """Build :data:`TRAIN_LIBRARIES` together before the train step's first
+    launch (one ``nvcc`` each, at once): a first step then waits for the
+    longest build, not for each one after the other."""
+    global _train_built
+    if not _train_built:
+        build_all(TRAIN_LIBRARIES)
+        _train_built = True
 
 
 def library(name: str) -> ctypes.CDLL:

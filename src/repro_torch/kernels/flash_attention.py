@@ -132,20 +132,6 @@ def _check_train(q, k, v, **more) -> None:
         raise ValueError(f"B * H = {b * h} exceeds the kernels' grid (65,535)")
 
 
-_TRAIN_LIBRARIES = ("flash_attention", "flash_attention_bwd")
-_train_built = False
-
-
-def _build_train_libraries() -> None:
-    """Build the training forward's and backward's libraries together before
-    the first training launch (one ``nvcc`` each, at once): a first step
-    then waits for the longer build, not for both one after the other."""
-    global _train_built
-    if not _train_built:
-        _build.build_all(_TRAIN_LIBRARIES)
-        _train_built = True
-
-
 def flash_attention_train(q, k, v, causal: bool = True):
     """The training forward: ``(out (B, H, S, Dv), lse (B, H, S) float32)``.
 
@@ -160,7 +146,7 @@ def flash_attention_train(q, k, v, causal: bool = True):
     _check_train(q, k, v)
     if not q.is_cuda:
         return flash_attention_train_ref(q, k, v, causal)
-    _build_train_libraries()
+    _build.build_train()
     b, h, s, dh = q.shape
     hkv, t, dv = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty((b, h, s, dv))

@@ -27,9 +27,10 @@ number.  :func:`span` marks nothing (the train step's parts, :data:`BLOCK`).
 a ring of the last :data:`RING` steps; outside a step a span only opens its
 profiler range.  :func:`count` adds to the step's counters (a device tensor
 is added on the device and never read inside the step): ``train_step.syncs``
-(:func:`sync`) and the model's ``moe.kept_pairs``, ``moe.slots``,
+(:func:`sync`), the model's ``moe.kept_pairs``, ``moe.slots``,
 ``dot_f32.tensor_core``, ``dot_f32.float32``, ``attention.fused`` and
-``attention.chunked``.  :func:`steps` synchronises once and returns each
+``attention.chunked``, and the optimizer's ``adamw.fused`` and
+``adamw.plain`` (leaves updated by the kernels and by the loop).  :func:`steps` synchronises once and returns each
 step's spans and counters as numbers.  Device times are placed on the step's
 own device timeline (milliseconds from the step's first event), so that
 overlapping records of one name are counted once by whoever sums them.  In

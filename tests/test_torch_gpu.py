@@ -688,7 +688,9 @@ def test_reduced_train_step_on_card_matches_cpu(cuda_device, no_tf32, arch):
     """One step at two microbatches on the card against the CPU, the same
     weights: the loss, each gradient leaf (relative to its largest
     magnitude) and the updated weights within 1e-4 (a learning rate of 1e-5
-    keeps Adam's sign-normalised first update from amplifying rounding)."""
+    keeps Adam's sign-normalised first update from amplifying rounding).
+    The card's step launches AdamW's kernels alone (a norm, an update a
+    leaf): the reduced configs' float32 attention takes the chunked loop."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.train import init_train_state, make_train_step
 
@@ -703,7 +705,10 @@ def test_reduced_train_step_on_card_matches_cpu(cuda_device, no_tf32, arch):
     before = launch_counts()
     s_card, m_card = make_train_step(card, opt, num_microbatches=2)(
         s_card, {k: v.to(cuda_device) for k, v in batch.items()})
-    assert launch_counts() == before  # the train path runs no kernel
+    after = launch_counts()
+    leaves = len(list(s_card.params.parameters()))
+    assert {k: after[k] - before[k] for k in after} == (
+        dict.fromkeys(after, 0) | {"adamw_norm": 1, "adamw_update": leaves})
     s_cpu, m_cpu = make_train_step(cpu, opt, num_microbatches=2)(s_cpu, batch)
     assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) < 1e-4
     for (name, a), b in zip(s_card.params.named_parameters(), s_cpu.params.parameters()):
@@ -921,3 +926,191 @@ def test_dot_f32_train_step_launches_no_float32_gemm(cuda_device):
     bad = sorted({k for ks in bf16 for k in ks if f32_gemm.search(k)})
     assert not bad, bad
     assert any(f32_gemm.search(k) for ks in f32 for k in ks)
+
+
+# ---------------------------------------------------------------------------
+# AdamW's kernels (csrc/adamw.cu) against the plain loop on the card
+# ---------------------------------------------------------------------------
+
+ADAMW_SIZES = (1, 3, 4, 4_097, 1_048_583)
+# Gradients of norm ~0.5 over the tree: a clip of 1.0 leaves them, 0.05 scales them.
+ADAMW_GRAD_SCALE = 5e-4
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def _adamw_tree(dev, seed, scale=1.0):
+    """Leaves of ragged sizes, and one misaligned slice of 4,097."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree = {f"w{n}": torch.randn(n, generator=gen, device=dev) * scale for n in ADAMW_SIZES}
+    tree["sliced"] = _misaligned(torch.randn(4_097, generator=gen, device=dev) * scale)
+    return tree
+
+
+def _plain_adamw(cfg, grads, state, params, scale):
+    """``optim.adamw_update``'s loop of ATen passes on CUDA leaves, with the
+    clip ``scale`` given; returns the new state."""
+    from repro_torch.optim import adamw as opt
+
+    count = state["count"] + 1
+    lr = cfg.lr_at(count)
+    cf = count.float()
+    bc1, bc2 = 1.0 - torch.pow(cfg.b1, cf), 1.0 - torch.pow(cfg.b2, cf)
+    for k in params:
+        opt._plain_update(cfg, params[k], grads[k], state["m"][k], state["v"][k], scale, lr,
+                          bc1, bc2)
+    return {"m": state["m"], "v": state["v"], "count": count}
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.1], ids=["no_decay", "decay"])
+@pytest.mark.parametrize("clip", [None, 1.0, 0.05], ids=["no_clip", "clip_1", "clip_0.05"])
+@pytest.mark.parametrize("state_dtype", [None, "bfloat16"], ids=["f32_moments", "bf16_moments"])
+def test_adamw_kernels_match_the_plain_loop(cuda_device, state_dtype, clip, wd):
+    """Three warm-up-cosine steps over ragged leaves (and a misaligned one),
+    the kernels against the loop on the card.  The norm and the clip scale
+    against ``global_norm``'s to rtol 1e-6 (partial sums in another order),
+    and the same bits from a second call.  The loop then takes the kernels'
+    scale: with bf16 moments a float32 ulp of the scale now and then moves a
+    moment across a bf16 rounding boundary, and the next step's weight by
+    lr / 256.  Weights and float32 moments to rtol 1e-6 / atol 1e-7 (a few
+    float32 ulps, should ATen round a pass otherwise), bf16 moments to rtol
+    1e-2 with no atol (one bf16 ulp is 2^-8 of the value; the moments are
+    ~1e-5 to 1e-8 here, so an atol would pass any moment)."""
+    from repro_torch.kernels import adamw_norm
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm, warmup_cosine
+    from repro_torch.optim.adamw import _clip_scale
+
+    cfg = AdamWConfig(lr=warmup_cosine(1e-2, 2, 6), b1=0.9, b2=0.95, eps=1e-8,
+                      weight_decay=wd, clip_norm=clip, state_dtype=state_dtype)
+    params = _adamw_tree(cuda_device, 0)
+    plain = {k: x.clone() for k, x in params.items()}
+    state, plain_state = adamw_init(cfg, params), adamw_init(cfg, plain)
+    rtol, atol = (1e-2, 0.0) if state_dtype else (1e-6, 1e-7)
+    for step in range(3):
+        grads = _adamw_tree(cuda_device, 10 + step, ADAMW_GRAD_SCALE)
+        before = launch_counts()
+        _, state, stats = adamw_update(cfg, grads, state, params)
+        after = launch_counts()
+        assert after["adamw_norm"] == before["adamw_norm"] + 1
+        assert after["adamw_update"] == before["adamw_update"] + len(params)
+        norm, scale = adamw_norm(tree_leaves(grads), clip)
+        assert torch.equal(norm, stats["grad_norm"])
+        plain_norm = global_norm(grads)
+        assert 0.05 < float(plain_norm) < 1.0  # a clip of 0.05 scales, 1.0 does not
+        torch.testing.assert_close(norm, plain_norm, rtol=1e-6, atol=0)
+        torch.testing.assert_close(scale, _clip_scale(cfg, plain_norm), rtol=1e-6, atol=0)
+        plain_state = _plain_adamw(cfg, grads, plain_state, plain, scale)
+        assert int(state["count"]) == int(plain_state["count"]) == step + 1
+        for k in params:
+            torch.testing.assert_close(params[k], plain[k], rtol=1e-6, atol=1e-7)
+            for name in ("m", "v"):
+                got, want = state[name][k], plain_state[name][k]
+                assert got.dtype == want.dtype == (torch.bfloat16 if state_dtype else torch.float32)
+                torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_adamw_kernels_take_bf16_masters_with_float32_gradients(cuda_device):
+    """bf16 masters with float32 gradients, as ``make_train_step`` hands them
+    over (it accumulates bf16 masters' gradients in float32), and bf16
+    moments: three steps, the kernels against the loop, weights and moments
+    to rtol 1e-2 with no atol (one bf16 ulp is 2^-8 of the value)."""
+    from repro_torch.kernels import adamw_norm
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine
+
+    def bf16(tree):
+        return {k: _misaligned(x.bfloat16()) if k == "sliced" else x.bfloat16()
+                for k, x in tree.items()}
+
+    cfg = AdamWConfig(lr=warmup_cosine(1e-2, 2, 6), clip_norm=0.05)
+    params = bf16(_adamw_tree(cuda_device, 0))
+    plain = {k: x.clone() for k, x in params.items()}
+    state, plain_state = adamw_init(cfg, params), adamw_init(cfg, plain)
+    for step in range(3):
+        grads = _adamw_tree(cuda_device, 10 + step, ADAMW_GRAD_SCALE)
+        _, state, _ = adamw_update(cfg, grads, state, params)
+        _, scale = adamw_norm(tree_leaves(grads), cfg.clip_norm)
+        plain_state = _plain_adamw(cfg, grads, plain_state, plain, scale)
+        for k in params:
+            for got, want in ((params[k], plain[k]), (state["m"][k], plain_state["m"][k]),
+                              (state["v"][k], plain_state["v"][k])):
+                assert got.dtype == want.dtype == torch.bfloat16
+                torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=0.0)
+
+
+def test_adamw_counts_only_the_leaves_it_launches_on(cuda_device):
+    """An empty CUDA leaf (as a rank's empty shard of an uneven split)
+    launches no update and counts in neither ``adamw.fused`` nor
+    ``adamw.plain``; every other leaf launches one update and counts once."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.runtime import spans
+
+    cfg = AdamWConfig(lr=1e-3)
+    params = _adamw_tree(cuda_device, 0) | {"empty": torch.empty(0, device=cuda_device)}
+    grads = _adamw_tree(cuda_device, 1, 1e-3) | {"empty": torch.empty(0, device=cuda_device)}
+    state = adamw_init(cfg, params)
+    before = launch_counts()
+    spans.clear()
+    spans.enable()
+    try:
+        with spans.step(cuda_device):
+            adamw_update(cfg, grads, state, params)
+        (st,) = spans.steps()
+    finally:
+        spans.disable()
+        spans.clear()
+    after = launch_counts()
+    assert st["counters"] == {"adamw.fused": len(params) - 1, "adamw.plain": 0}
+    assert {k: after[k] - before[k] for k in after} == (
+        dict.fromkeys(after, 0) | {"adamw_norm": 1, "adamw_update": len(params) - 1})
+
+
+@pytest.mark.parametrize("lr", ["warmup_cosine", "constant"])
+def test_adamw_update_never_waits_for_the_device(cuda_device, lr):
+    """A whole ``adamw_update`` on CUDA leaves under
+    ``torch.cuda.set_sync_debug_mode("error")``: no ``.item()``, no pageable
+    copy to the card, nothing that makes the host wait."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine
+
+    cfg = AdamWConfig(lr=warmup_cosine(1e-2, 2, 6) if lr == "warmup_cosine" else 1e-3)
+    params = _adamw_tree(cuda_device, 0)
+    state = adamw_init(cfg, params)
+    _, state, _ = adamw_update(cfg, _adamw_tree(cuda_device, 1, 1e-3), state, params)
+    grads = _adamw_tree(cuda_device, 2, 1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, state, stats = adamw_update(cfg, grads, state, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state["count"]) == 2 and bool(torch.isfinite(stats["grad_norm"]))
+
+
+@pytest.mark.parametrize("leaf", ["transposed", "float64"])
+def test_adamw_kernels_refuse_what_they_do_not_take(cuda_device, leaf):
+    """A CUDA leaf the kernels do not take raises before any launch: no
+    fallback to the loop."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    cfg = AdamWConfig(lr=1e-3)
+    if leaf == "transposed":
+        p = torch.randn(8, 16, device=cuda_device).t()
+        g = torch.randn(8, 16, device=cuda_device).t()
+        err, match = ValueError, "contiguous"
+    else:
+        p = torch.randn(64, device=cuda_device, dtype=torch.float64)
+        g = torch.randn(64, device=cuda_device, dtype=torch.float64)
+        err, match = TypeError, "float32 or bfloat16"
+    state = adamw_init(cfg, {"w": p})
+    before = launch_counts()
+    with pytest.raises(err, match=match):
+        adamw_update(cfg, {"w": g}, state, {"w": p})
+    assert launch_counts() == before

@@ -4,6 +4,8 @@ AdamW (clipping, weight decay, bf16 moments) at 1e-6, the global norm and
 both schedules against ``repro.optim``; int8 quantization, dequantization
 and error-feedback compression bit for bit (both round half to even); and
 ``compressed_psum`` in a two-process gloo group against the numpy formula.
+AdamW's path by input: CPU and meta leaves, and a DTensor tree on the CPU,
+take the plain loop (the card's kernels' twin) and count it.
 """
 import socket
 
@@ -22,7 +24,11 @@ from repro.optim import dequantize_int8 as jax_dequantize_int8  # noqa: E402
 from repro.optim import global_norm as jax_global_norm  # noqa: E402
 from repro.optim import quantize_int8 as jax_quantize_int8  # noqa: E402
 from repro.optim import warmup_cosine as jax_warmup_cosine  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.models import Params  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.spmd import is_dtensor  # noqa: E402
+from repro_torch.optim import adamw as adamw_module  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     AdamWConfig,
     adamw_init,
@@ -35,6 +41,7 @@ from repro_torch.optim import (  # noqa: E402
     quantize_int8,
     warmup_cosine,
 )
+from repro_torch.runtime import spans  # noqa: E402
 
 
 def _f32(x):
@@ -55,6 +62,14 @@ def _torch_tree(t):
     if isinstance(t, list):
         return [_torch_tree(v) for v in t]
     return torch.from_numpy(t.copy())
+
+
+def _tree_to(t, device):
+    if isinstance(t, dict):
+        return {k: _tree_to(v, device) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_tree_to(v, device) for v in t]
+    return t.to(device)
 
 
 def _jax_tree(t):
@@ -207,3 +222,212 @@ def test_compressed_psum_in_a_gloo_group():
         assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
         for r in range(2):
             np.testing.assert_array_equal(out[r], want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_cpu_and_meta_leaves_take_the_plain_loop_and_count_it(device):
+    """A traced step on CPU (or meta) leaves counts every leaf as
+    ``adamw.plain`` and none as ``adamw.fused``, and launches no kernel."""
+    cfg = AdamWConfig(lr=warmup_cosine(1e-2, 2, 6))
+    params = _torch_tree(_tree(0))
+    grads = _torch_tree(_tree(1, scale=0.3))
+    if device == "meta":
+        params, grads = (_tree_to(t, "meta") for t in (params, grads))
+    state = adamw_init(cfg, params)
+    leaves = len(_pairs(params, params))
+    before = kernels.launch_counts()
+    spans.clear()
+    spans.enable()
+    try:
+        with spans.step(device):
+            adamw_update(cfg, grads, state, params)
+        (st,) = spans.steps()
+    finally:
+        spans.disable()
+        spans.clear()
+    assert st["counters"] == {"adamw.fused": 0, "adamw.plain": leaves}
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("wrapper", ["adamw_norm", "adamw_update"])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    """The kernels' wrappers take CUDA tensors only: a CPU leaf raises before
+    any launch (the optimizer sends CPU leaves to the loop)."""
+    x, s = torch.ones(4), torch.ones(())
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="optim/adamw.py's loop"):
+        if wrapper == "adamw_norm":
+            kernels.adamw_norm([x], 1.0)
+        else:
+            kernels.adamw_update(x, x, x.clone(), x.clone(), s, s, s, s, b1=0.9, b2=0.95,
+                                 eps=1e-8, weight_decay=0.1)
+    assert kernels.launch_counts() == before
+
+
+def _dtensor_worker(port, out):
+    """One rank over a CPU mesh: AdamW on a DTensor tree against the same
+    tree of plain tensors, with ``global_norm`` watched."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), "cpu")
+        calls = []
+        plain_norm = adamw_module.global_norm
+
+        def watched(tree):
+            calls.append(sum(map(is_dtensor, tree_leaves(tree))))  # DTensor leaves seen
+            return plain_norm(tree)
+
+        adamw_module.global_norm = watched
+        cfg = AdamWConfig(lr=warmup_cosine(1e-2, 2, 6), weight_decay=0.1, clip_norm=0.05)
+        flat = lambda t: {"w": t["w"], "b0": t["layers"][0]["b"], "norm": t["norm"]}
+        params = flat(_torch_tree(_tree(0)))
+        place = lambda k, x: distribute_tensor(x.clone(), mesh,
+                                               [Shard(0) if k == "w" else Replicate()])
+        dparams = {k: place(k, x) for k, x in params.items()}
+        state, dstate = adamw_init(cfg, params), adamw_init(cfg, dparams)
+        counters = []
+        for step in range(3):
+            grads = flat(_torch_tree(_tree(10 + step, scale=0.3)))
+            dgrads = {k: place(k, x) for k, x in grads.items()}
+            spans.enable()
+            with spans.step("cpu"):
+                _, dstate, dstats = adamw_update(cfg, dgrads, dstate, dparams)
+            spans.disable()
+            counters.append(spans.steps()[-1]["counters"])
+            spans.clear()
+            _, state, stats = adamw_update(cfg, grads, state, params)
+            out["norms"] = out.get("norms", []) + [(float(dstats["grad_norm"]),
+                                                   float(stats["grad_norm"]))]
+        out["equal"] = all(torch.equal(dparams[k].full_tensor(), params[k])
+                           and torch.equal(dstate[n][k].full_tensor(), state[n][k])
+                           for k in params for n in ("m", "v"))
+        out["calls"], out["counters"] = calls, counters
+    finally:
+        adamw_module.global_norm = plain_norm
+        dist.destroy_process_group()
+
+
+def test_dtensor_tree_on_cpu_takes_global_norm():
+    """A DTensor tree on a one-rank CPU mesh: the norm is ``global_norm``'s
+    (once a step, over every leaf), each leaf's shard takes the loop, and
+    three steps give the plain tree's weights and moments bit for bit."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with ctx.Manager() as manager:
+        out = manager.dict()
+        proc = ctx.Process(target=_dtensor_worker, args=(_free_port(), out))
+        proc.start()
+        proc.join(timeout=120)
+        assert proc.exitcode == 0, proc.exitcode
+        out = dict(out)
+    assert out["calls"] == [3, 0] * 3  # the DTensor tree's step, then the plain tree's
+    assert out["counters"] == [{"adamw.fused": 0, "adamw.plain": 3}] * 3
+    assert all(d == p for d, p in out["norms"]), out["norms"]
+    assert out["equal"]
+
+
+def test_kernel_wrappers_count_only_what_they_launch(monkeypatch):
+    """The wrappers' plumbing, with each launch recorded in place of the
+    card's: an empty leaf launches no update and counts none; the norm
+    launches a partial for each non-empty leaf, then (on a mesh) the rank's
+    sum, ``reduce`` and the finish over its total, and counts the call once."""
+    from repro_torch.kernels import adamw as kernel_module
+
+    launched = []
+    monkeypatch.setattr(kernel_module, "_check", lambda *args, **kwargs: None)
+    monkeypatch.setattr(kernel_module._build, "build_train", lambda: None)
+    monkeypatch.setattr(kernel_module._build, "launch",
+                        lambda lib, symbol, argtypes, device, *args: launched.append(symbol))
+    s, hyper = torch.ones(()), {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "weight_decay": 0.1}
+    empty, leaf = torch.ones(0), torch.ones(5)
+    before = kernels.launch_counts()
+    kernels.adamw_update(empty, empty, empty.clone(), empty.clone(), s, s, s, s, **hyper)
+    assert launched == [] and kernels.launch_counts() == before
+    kernels.adamw_update(leaf, leaf, leaf.clone(), leaf.clone(), s, s, s, s, **hyper)
+    assert launched == ["adamw_update"]
+    assert kernels.launch_counts() == before | {"adamw_update": before["adamw_update"] + 1}
+
+    launched.clear()
+    reduced = []
+    kernels.adamw_norm([leaf, empty, leaf], 1.0,
+                       reduce=lambda x: reduced.append(tuple(x.shape)) or torch.ones(1))
+    assert launched == ["adamw_norm_partial", "adamw_norm_partial", "adamw_norm_sum",
+                        "adamw_norm_finish"]
+    assert reduced == [(1,)]
+    launched.clear()
+    kernels.adamw_norm([], None, device=torch.device("cpu"), reduce=lambda x: torch.ones(1))
+    assert launched == ["adamw_norm_sum", "adamw_norm_finish"]
+    with pytest.raises(ValueError, match="no gradients"):
+        kernels.adamw_norm([], None)
+    assert kernels.launch_counts() == before | {"adamw_update": before["adamw_update"] + 1,
+                                                "adamw_norm": before["adamw_norm"] + 2}
+
+
+def _mesh_norm_worker(rank, world, port, out):
+    """One rank of a 2x2 CPU mesh: the shards ``_norm_shards`` picks, their
+    sum of squares added over the mesh by ``_mesh_sum``, against the norm
+    of the whole tensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        i, _ = mesh.get_coordinate()
+        gen = torch.Generator().manual_seed(7)  # the same tree on every rank
+        x = lambda *shape: torch.randn(*shape, generator=gen)
+        R, S0, S1 = Replicate(), Shard(0), Shard(1)
+        grads = {
+            "replicated": distribute_tensor(x(5, 3), mesh, [R, R]),
+            "rows": distribute_tensor(x(6, 4), mesh, [S0, R]),
+            "cols": distribute_tensor(x(6, 4), mesh, [R, S1]),
+            "both": distribute_tensor(x(6, 4), mesh, [S0, S1]),
+            "uneven": distribute_tensor(x(1, 3), mesh, [S0, R]),  # mesh row 1's shard is empty
+            "partial": DTensor.from_local(x(4, 2) * (i + 1), mesh, [Partial(), R]),
+            "plain": x(3),
+        }
+        whole = [g.full_tensor() if is_dtensor(g) else g for g in grads.values()]
+        shards, _ = adamw_module._norm_shards(list(grads.values()))
+        local = sum((s.square().sum() for s in shards), torch.zeros(()))
+        total = adamw_module._mesh_sum(mesh)(local.reshape(1))
+        want = sum(float(w.double().square().sum()) for w in whole)
+        out[rank] = (tuple(mesh.get_coordinate()), len(shards), [s.numel() for s in shards],
+                     float(total), want)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_norm_counts_each_element_once():
+    """Four ranks of a 2x2 gloo mesh: each DTensor leaf's shard counts on
+    the ranks first along every mesh dim that replicates it (a replicated
+    leaf, a plain leaf and a ``Partial`` one, once summed, on rank (0, 0)
+    alone), an empty shard counts nothing, and the ranks' sums of squares
+    added over the mesh give the tree's, on every rank."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with ctx.Manager() as manager:
+        out = manager.dict()
+        port = _free_port()
+        procs = [ctx.Process(target=_mesh_norm_worker, args=(r, 4, port, out)) for r in range(4)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=120)
+        assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+        out = dict(out)
+    # replicated, rows, cols, both, uneven, partial, plain
+    want = {(0, 0): [15, 12, 12, 6, 3, 8, 3], (0, 1): [12, 6], (1, 0): [12, 6, 0], (1, 1): [6]}
+    assert {c: sizes for c, _, sizes, _, _ in out.values()} == want
+    for _, n, sizes, total, whole in out.values():
+        assert n == len(sizes)
+        assert total == pytest.approx(whole, rel=1e-6)
