@@ -1,0 +1,8 @@
+"""Device ms a train step spends in the Mamba2 mixers' chunked scan: the
+program's ``repro_torch.mamba.ssd`` spans, forward, remat's recompute and
+backward, each stretch of the step's device timeline counted once."""
+from portbench import spanread
+
+
+def read(ctx):
+    return spanread.device_ms(ctx, {"repro_torch.mamba.ssd"})

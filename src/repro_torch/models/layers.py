@@ -37,7 +37,9 @@ __all__ = [
     "linear",
     "make_rope_cache",
     "normal",
+    "relu2_mlp",
     "rms_norm",
+    "rms_norm_grouped",
     "swiglu",
 ]
 
@@ -192,6 +194,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def rms_norm_grouped(x: torch.Tensor, w: torch.Tensor, groups: int,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` taken over each of ``groups`` equal runs of the last
+    dim apart (Mamba2's grouped gated norm), then times ``w``."""
+    xf = x.float()
+    xg = xf.reshape(*x.shape[:-1], groups, x.shape[-1] // groups)
+    var = (xg * xg).mean(dim=-1, keepdim=True)
+    return ((xg * torch.rsqrt(var + eps)).reshape(x.shape) * w.float()).to(x.dtype)
+
+
 def make_rope_cache(positions: torch.Tensor, d_head: int, theta: float):
     """cos/sin tables ``(..., S, d_head // 2)`` for positions ``(..., S)``.
 
@@ -259,6 +271,15 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     their F split and the down product's partial sums are reduced."""
     gate, up = col_linear(x, (w_gate, w_up), dot_f32)
     return row_linear((F.silu(gate) * up).to(x.dtype), w_down, linear)
+
+
+def relu2_mlp(x, w_up, w_down) -> torch.Tensor:
+    """Nemotron-H's non-gated squared-ReLU feed-forward ``down(relu(up(x))^2)``:
+    up with float32 sums and output (:func:`dot_f32`), the square in float32
+    and ``h`` and the down product in the activation type, as :func:`swiglu`
+    takes them; leading axes batch alike."""
+    up = col_linear(x, w_up, dot_f32)
+    return row_linear(torch.relu(up).square().to(x.dtype), w_down, linear)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,18 @@ Shapes (G state groups, Hg = H // G heads per group):
   Cm  (B, S, G, N)     output projections
 
 Decode is the O(1) recurrent form over a persistent (B, H, P, N) state.
+
+The mixer's width is ``expand * d`` as the reference sizes it, or, for the
+port's :class:`~repro_torch.archs.MambaSettings` with ``n_heads``, heads times
+``head_dim`` (Nemotron-H); its gated norm is one RMSNorm over the width at
+1e-6 as the reference takes it, or, for ``MambaSettings``, one per group
+of ``d_inner / n_groups`` channels at the settings' epsilon, as published
+Mamba2 takes it.
+
+Spans (:func:`~repro_torch.runtime.spans.traced`): ``repro_torch.mamba``
+(the whole mixer of :func:`mamba_mixer`: in_proj, conv, SSD, gated norm,
+out_proj) and ``repro_torch.mamba.ssd`` (:func:`ssd_chunked`, counting each
+row's chunks in ``mamba.chunks``).
 """
 from __future__ import annotations
 
@@ -22,8 +34,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import init_linear, linear, normal, rms_norm
+from ..archs import MambaSettings, mamba_width
+from ..runtime import spans
 from ..runtime.axes import get_activation_sharding, hint
+from .layers import init_linear, linear, normal, rms_norm, rms_norm_grouped
 from .spmd import (col, col_linear, is_dtensor, local_index, model_ways,
                    placements, replicated_like, row_linear, rows_move, shard_map, split_parts,
                    to_layout_of, weight_layout)
@@ -51,6 +65,7 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill_(replicated_like(a, above), float("-inf"))
 
 
+@spans.traced("repro_torch.mamba.ssd")
 def ssd_chunked(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -80,6 +95,7 @@ def ssd_chunked(
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
     s_orig, s = s, s + pad
     nc = s // chunk
+    spans.count("mamba.chunks", b * nc)
 
     # Chunked views, grouped heads: (B, nc, L, G, Hg, ...)
     dtc = dt.reshape(b, nc, chunk, g, hg).float()
@@ -205,8 +221,9 @@ def _conv_step_by_weight(x_t, conv_state, w, b):
 
 
 def init_mamba_params(gen: torch.Generator, d_model: int, ssm, dtype) -> dict:
-    """``ssm`` is a configs.base.SSMSettings; draws on ``gen``'s device."""
-    d_inner = ssm.expand * d_model
+    """``ssm`` is a configs.base.SSMSettings (or the port's MambaSettings);
+    draws on ``gen``'s device."""
+    d_inner = mamba_width(ssm, d_model)
     h = d_inner // ssm.head_dim
     conv_dim = d_inner + 2 * ssm.n_groups * ssm.d_state
     d_in_proj = 2 * d_inner + 2 * ssm.n_groups * ssm.d_state + h
@@ -223,6 +240,16 @@ def init_mamba_params(gen: torch.Generator, d_model: int, ssm, dtype) -> dict:
         "norm_w": torch.ones((d_inner,), dtype=dtype, device=dev),
         "out_proj": init_linear(gen, d_inner, d_model, dtype),
     }
+
+
+def _gated_norm(yz, w, ssm):
+    """The gated RMSNorm of ``yz = y * silu(z)``: per group of channels for
+    the port's ``MambaSettings``; over the whole width at 1e-6 for the
+    reference's ``SSMSettings``, as the reference's mixer takes it whatever
+    ``n_groups``."""
+    if isinstance(ssm, MambaSettings):
+        return rms_norm_grouped(yz, w, ssm.n_groups, ssm.norm_eps)
+    return rms_norm(yz, w)
 
 
 def _split_proj(z_xbc_dt, d_inner, gn2, h):
@@ -285,6 +312,7 @@ def _at(dim: int, ndim: int, heads) -> tuple:
     return tuple(spec)
 
 
+@spans.traced("repro_torch.mamba")
 def mamba_mixer(
     params, x: torch.Tensor, ssm, *, chunk: Optional[int] = None,
     initial_state: Optional[torch.Tensor] = None, return_state: bool = False,
@@ -305,7 +333,7 @@ def mamba_mixer(
     Elsewhere, one product and slices of it.
     """
     b, s, d = x.shape
-    d_inner = ssm.expand * d
+    d_inner = mamba_width(ssm, d)
     h = d_inner // ssm.head_dim
     g, n = ssm.n_groups, ssm.d_state
     conv = lambda raw: F.silu(_conv_by_channels(raw, params["conv_w"], params["conv_b"])
@@ -333,7 +361,7 @@ def mamba_mixer(
         xs, dt, A, bm, cm, initial_state, head_dim=2)
     y = y + (params["D"].reshape(h, 1) * xs.float()).to(y.dtype)
     y = y.reshape(b, s, d_inner)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"])
+    y = _gated_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"], ssm)
     out = row_linear(y, params["out_proj"], linear)
     if return_state:
         width = params["conv_w"].shape[0]
@@ -359,7 +387,7 @@ def mamba_decode_step(
     input are laid out as their weights are; the SSD runs on heads over
     'model'."""
     b, d = x_t.shape
-    d_inner = ssm.expand * d
+    d_inner = mamba_width(ssm, d)
     h = d_inner // ssm.head_dim
     g, n = ssm.n_groups, ssm.d_state
     proj = col_linear(x_t, params["in_proj"], linear)
@@ -384,5 +412,5 @@ def mamba_decode_step(
     y = y.reshape(b, d_inner) * F.silu(z.float()).to(y.dtype)
     if stationary:
         y = to_layout_of(y, params["norm_w"], 1)
-    out = row_linear(rms_norm(y, params["norm_w"]), params["out_proj"], linear)
+    out = row_linear(_gated_norm(y, params["norm_w"], ssm), params["out_proj"], linear)
     return out, conv_state, ssm_state

@@ -18,7 +18,10 @@ The MoE FFN:
   3. pairs past the expert's capacity are dropped, the kept ones copied into
      per-expert capacity slabs ``(E, C, D)`` (one pair per slot, so the copy
      is exact in any order; dropped pairs go to a spare row that is cut off);
-  4. the expert SwiGLU over the slabs: through the forward-only kernel
+  4. the expert FFN over the slabs, a SwiGLU (or, with
+     ``activation="relu2"``, Nemotron-H's non-gated squared ReLU,
+     :func:`~repro_torch.models.layers.relu2_mlp`, which has no kernel):
+     the SwiGLU through the forward-only kernel
      :func:`repro_torch.kernels.moe_mlp` when serving, through
      :func:`~repro_torch.models.layers.swiglu` batched over the experts
      when training (``train=True``): the reference's three ``einsum``
@@ -30,18 +33,29 @@ The MoE FFN:
      in the activation type) in differentiable PyTorch, as the reference
      trains through them and not through its kernel;
   5. each kept pair's output gathered back and combined with its router
-     weight in float32, plus the shared experts (the same SwiGLU over
-     every token) under their sigmoid gate where they have one
+     weight in float32, plus the shared experts (the same FFN over every
+     token) under their sigmoid gate where they have one
      (``shared["gate"]``), added as they are where they have none.
 
-The aux loss is the Switch loss over the microbatch, or with ``seq_rows``
-DeepSeek-V3's sequence-wise balance loss over each packed row
-(:func:`sequence_balance_loss`).
+The routing policy is the layer's settings, :class:`~repro_torch.archs.RoutedMoESettings`
+(the reference's ``MoESettings`` read as its defaults): the scoring, the
+bias, the scale, the balance loss, the activation and the experts held.
+The aux loss is the Switch loss over the microbatch, or with
+``balance="sequence"`` DeepSeek-V3's sequence-wise balance loss over each
+packed row (:func:`sequence_balance_loss`).
+
+**Experts held** (``held``): a layer told that it holds experts ``0 ..
+held - 1`` of the router's ``n_experts`` (its chip's share of an
+expert-parallel group) routes over all of them, as the router, its bias,
+the capacity and the balance loss do, and computes only its own experts'
+part of the result: a pair routed to an expert it does not hold is left
+out, and no exchange stands in for the chips that hold the others.
 
 Spans (:func:`~repro_torch.runtime.spans.traced`): ``repro_torch.moe.route``
 (step 1 and the aux loss; the bias comes detached), ``.dispatch`` (2-3,
-counting ``moe.kept_pairs`` and ``moe.slots``), ``.experts``, ``.combine``
-and ``.shared``.
+counting ``moe.kept_pairs`` and ``moe.slots`` of the experts held, and
+``moe.foreign_pairs``, the pairs routed to experts held elsewhere),
+``.experts``, ``.combine`` and ``.shared``.
 
 ``expert_perm`` (E,) maps a logical expert to the slab slot holding its
 weights, as in the reference.  On DTensors (a mesh profile installed, see
@@ -58,10 +72,12 @@ from typing import Optional
 
 import torch
 
+from ..archs import routed_settings
+from ..configs.base import MoESettings
 from ..kernels import moe_mlp
 from ..runtime import spans
 from ..runtime.axes import get_activation_sharding
-from .layers import dot_f32, init_linear, normal, swiglu
+from .layers import dot_f32, init_linear, normal, relu2_mlp, swiglu
 from .spmd import (grad_layout, is_dtensor, local_index, placements, reduce_rows, shard_map,
                    slab_sum, whole)
 
@@ -87,29 +103,36 @@ def recorded_routing():
 
 def init_moe_params(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
     """cfg is a configs.base.MoESettings (or the port's RoutedMoESettings,
-    whose correction bias starts at zero and whose shared experts may have
-    no gate)."""
-    def experts(d_in, d_out):
-        return normal(gen, (cfg.n_experts, d_in, d_out)).mul_(d_in ** -0.5).to(dtype)
+    whose correction bias starts at zero, whose experts may have no gate or
+    be fewer than the router's and whose shared experts may have no gate)."""
+    r = routed_settings(cfg)
+    gated = r.activation == "swiglu"
 
-    p = {
-        "router": init_linear(gen, d_model, cfg.n_experts, torch.float32),
-        "w_gate": experts(d_model, cfg.d_ff_expert),
-        "w_up": experts(d_model, cfg.d_ff_expert),
-        "w_down": experts(cfg.d_ff_expert, d_model),
-    }
-    if getattr(cfg, "correction_bias", False):
-        p["router_bias"] = torch.zeros((cfg.n_experts,), dtype=torch.float32, device=gen.device)
-    if cfg.n_shared_experts:
-        f_shared = cfg.n_shared_experts * cfg.d_ff_expert
-        p["shared"] = {
-            "w_gate": init_linear(gen, d_model, f_shared, dtype),
-            "w_up": init_linear(gen, d_model, f_shared, dtype),
-            "w_down": init_linear(gen, f_shared, d_model, dtype),
-        }
-        if getattr(cfg, "shared_gate", True):
+    def experts(d_in, d_out):
+        return normal(gen, (r.n_held, d_in, d_out)).mul_(d_in ** -0.5).to(dtype)
+
+    p = {"router": init_linear(gen, d_model, r.n_experts, torch.float32)}
+    if gated:
+        p["w_gate"] = experts(d_model, r.d_ff_expert)
+    p["w_up"] = experts(d_model, r.d_ff_expert)
+    p["w_down"] = experts(r.d_ff_expert, d_model)
+    if r.correction_bias:
+        p["router_bias"] = torch.zeros((r.n_experts,), dtype=torch.float32, device=gen.device)
+    if r.n_shared_experts:
+        f_shared = r.shared_width
+        p["shared"] = {"w_gate": init_linear(gen, d_model, f_shared, dtype)} if gated else {}
+        p["shared"]["w_up"] = init_linear(gen, d_model, f_shared, dtype)
+        p["shared"]["w_down"] = init_linear(gen, f_shared, d_model, dtype)
+        if r.shared_gate:
             p["shared"]["gate"] = init_linear(gen, d_model, 1, torch.float32)
     return p
+
+
+def _expert_weights(p, activation: str) -> tuple:
+    """The expert FFN's weights in its order: ``(w_gate, w_up, w_down)``
+    for a SwiGLU, ``(w_up, w_down)`` for the squared ReLU."""
+    names = ("w_up", "w_down") if activation == "relu2" else ("w_gate", "w_up", "w_down")
+    return tuple(p[k] for k in names)
 
 
 def _expert_counts(ids, n_experts: int) -> torch.Tensor:
@@ -240,8 +263,9 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
     slab row of each pair and whether it was kept.  A dropped pair's row is
     the spare row ``n * capacity`` past the slabs; unfilled slab rows, and
     so every row of an expert no pair chose, are zeros.  Counts the pairs
-    kept (``moe.kept_pairs``) and the slots they were kept in
-    (``moe.slots``).
+    kept (``moe.kept_pairs``), the slots they were kept in (``moe.slots``)
+    and, with ``experts``, the pairs routed to experts outside it
+    (``moe.foreign_pairs``).
     """
     t, top_k = ids.shape
     n_pairs = t * top_k
@@ -254,8 +278,10 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
     pos = expert_positions(key, n_experts * n_shards)
     keep = pos < cap_l
     e0, n_exp = experts or (0, n_experts)
+    held = None
     if experts is not None:
-        keep = keep & (ids_flat >= e0) & (ids_flat < e0 + n_exp)
+        held = (ids_flat >= e0) & (ids_flat < e0 + n_exp)
+        keep = keep & held
     n_rows = n_exp * capacity
     rows = torch.where(keep, (key - e0 * n_shards) * cap_l + pos, n_rows)
     pair_token = torch.arange(n_pairs, device=x.device) // top_k
@@ -264,27 +290,30 @@ def dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int, capacity: int,
     if spans.is_on():
         spans.count("moe.kept_pairs", keep.sum())
         spans.count("moe.slots", n_rows)
+        if held is not None:
+            spans.count("moe.foreign_pairs", n_pairs - held.sum())
     return slab[:n_rows].view(n_exp, capacity, x.shape[1]), rows, keep
 
 
-def _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts: int, capacity: int,
+def _routed_experts(x, ids, weights, ws: tuple, n_experts: int, capacity: int,
                     n_shards: int, e0: Optional[int], experts, own=None):
     """The routed experts' combined output ``(T, D)`` in float32 of tokens
-    ``x (T, D)``: dispatch, the expert FFN ``experts`` over the slabs, each
-    kept pair's output gathered back and weighted.  ``e0`` set: the weights
-    hold experts ``e0 ..`` only, and pairs routed elsewhere add nothing.
-    ``own`` set: ``weights`` are those of tokens ``own .. own +
-    len(weights)`` only, whose outputs alone are combined."""
-    window = None if e0 is None else (e0, w_gate.shape[0])
+    ``x (T, D)``: dispatch, the expert FFN ``experts`` with the weights
+    ``ws`` over the slabs, each kept pair's output gathered back and
+    weighted.  ``e0`` set: the weights hold experts ``e0 ..`` only, and
+    pairs routed elsewhere add nothing.  ``own`` set: ``weights`` are those
+    of tokens ``own .. own + len(weights)`` only, whose outputs alone are
+    combined."""
+    window = None if e0 is None else (e0, ws[0].shape[0])
     slab, rows, keep = dispatch(x, ids, n_experts, capacity, n_shards, window)
-    out_slab = _expert_ffn(slab, w_gate, w_up, w_down, experts)
+    out_slab = _expert_ffn(experts, slab, *ws)
     return _combine(out_slab, rows, keep, weights, capacity, ids.shape[1], own)
 
 
 @spans.traced("repro_torch.moe.experts")
-def _expert_ffn(slab, w_gate, w_up, w_down, experts):
+def _expert_ffn(experts, slab, *ws):
     """The expert FFN ``experts`` over the capacity slabs."""
-    return experts(slab, w_gate, w_up, w_down)
+    return experts(slab, *ws)
 
 
 @spans.traced("repro_torch.moe.combine")
@@ -308,7 +337,7 @@ def _combine(out_slab, rows, keep, weights, capacity: int, top_k: int, own):
     return (y_pairs * weights.reshape(t * top_k, 1)).reshape(t, top_k, d).sum(dim=1)
 
 
-def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: int, ns: int,
+def _routed_experts_sharded(x, ids, weights, ws: tuple, n_experts: int, capacity: int, ns: int,
                             experts, expert_perm):
     """:func:`_routed_experts` on DTensors, on each rank's shards.
 
@@ -342,7 +371,6 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
     tp = next((a for a in prof.logical.get("model", ()) if a in mesh.mesh_dim_names), None)
     tp_size = prof.axis_size((tp,)) if tp else 1
     split = tp_size > 1 and n_experts % tp_size == 0
-    ws = (params["w_gate"], params["w_up"], params["w_down"])
     rows_pl = placements(x.shape, ("batch", None))  # the combine's: this rank's tokens
     f_dims = [d for d, p in enumerate(ws[0].placements)
               if isinstance(p, Shard) and p.dim == 2 and mesh.size(d) > 1]
@@ -378,7 +406,7 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
     if f_dims:
         w_pls = [list(w.placements) for w in ws]
     else:
-        w_pls = [placements(ws[0].shape, ("model" if split else None, None, None))] * 3
+        w_pls = [placements(ws[0].shape, ("model" if split else None, None, None))] * len(ws)
     names = mesh.mesh_dim_names
     y_pl = [Partial() if split and names[d] == tp else p for d, p in enumerate(rows_pl)]
 
@@ -386,18 +414,18 @@ def _routed_experts_sharded(x, ids, weights, params, n_experts: int, capacity: i
         out = experts(*a)
         return slab_sum(out.float(), f_dims, mesh) if f_dims else out
 
-    def local(x, ids, weights, w_gate, w_up, w_down):
+    def local(x, ids, weights, *ws):
         if expert_perm is not None:
             ids = expert_perm.to(ids.device)[ids]
-        e0 = local_index(tp, True) * w_gate.shape[0] if split else None
+        e0 = local_index(tp, True) * ws[0].shape[0] if split else None
         own = None
         if own_dims:  # this rank's block of the tokens, in DTensor's chunk order
             own = 0
             for d in own_dims:
                 own = own * mesh.size(d) + mesh.get_local_rank(d)
             own *= weights.shape[0]
-        return _routed_experts(x, ids, weights, w_gate, w_up, w_down, n_experts,
-                               capacity // ways, ns // ways, e0, ffn, own)
+        return _routed_experts(x, ids, weights, ws, n_experts, capacity // ways, ns // ways, e0,
+                               ffn, own)
 
     y = shard_map(local, (x, ids, weights, *ws), (x_pl, x_pl, rows_pl, *w_pls), y_pl)
     return reduce_rows(y)
@@ -414,58 +442,72 @@ def moe_ffn(
     expert_perm: Optional[torch.Tensor] = None,
     n_dispatch_shards: int = 1,
     train: bool = False,
-    scoring: str = "softmax",
-    routed_scale: float = 1.0,
-    seq_rows: int = 0,
+    routing=None,
+    rows: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (T, D), aux load-balancing loss).
 
-    ``scoring``, ``routed_scale`` and ``params["router_bias"]`` (where the
-    layer has one) choose the experts and weigh them (:func:`route`);
-    ``seq_rows`` > 0 takes DeepSeek-V3's sequence-wise balance loss over
-    that many rows of ``x`` in place of the Switch loss.
+    ``routing``, the layer's settings (a ``MoESettings`` or the port's
+    ``RoutedMoESettings``; None: the reference's defaults), sets the
+    policy: its ``scoring``, ``routed_scale`` and ``params["router_bias"]``
+    (where the layer has one) choose the experts and weigh them
+    (:func:`route`); ``balance="sequence"`` takes DeepSeek-V3's
+    sequence-wise balance loss over the ``rows`` packed rows of ``x`` in
+    place of the Switch loss; ``activation`` names the experts' FFN; with
+    ``held`` the layer holds experts ``0 .. held - 1`` of the ``n_experts``
+    it routes over, and pairs routed to the others are left out.
 
     ``n_dispatch_shards`` (the data-parallel degree under a mesh profile)
     splits each expert's capacity into per-shard slices, the reference's
     slab ``(E, ns, cap/ns, D)`` (see :func:`dispatch`); it falls back to 1
     where tokens or capacity do not split into shards of at least ``top_k``
-    slots, as the reference's does.  ``train`` runs the experts through
-    ``swiglu`` (differentiable) in place of the ``moe_mlp`` kernel (forward
-    only)."""
+    slots, as the reference's does.  ``train`` runs a SwiGLU's experts
+    through ``swiglu`` (differentiable) in place of the ``moe_mlp`` kernel
+    (forward only)."""
+    r = routed_settings(routing or MoESettings(n_experts, top_k, 0))
+    activation = r.activation
+    held = r.held if r.held < n_experts else 0
     t, d = x.shape
     x = grad_layout(x, "batch", None)
     bias = params["router_bias"].detach() if "router_bias" in params else None
-    weights, ids, aux = _route(x, params["router"], bias, top_k, n_experts, norm_topk, scoring,
-                               routed_scale, seq_rows)
+    weights, ids, aux = _route(x, params["router"], bias, top_k, n_experts, norm_topk, r.scoring,
+                               r.routed_scale, rows if r.balance == "sequence" else 0)
     ns = n_dispatch_shards
     if ns < 1 or t % ns or capacity % ns or capacity // ns < top_k:
         ns = 1  # decode-sized batches: slices would be thinner than top_k
-    experts = swiglu if train else moe_mlp
+    if activation == "relu2":
+        experts = relu2_mlp
+    else:
+        experts = swiglu if train else moe_mlp
+    ws = _expert_weights(params, activation)
 
     if is_dtensor(x):
-        y = _routed_experts_sharded(x, ids, weights, params, n_experts, capacity, ns, experts,
+        if held:
+            raise NotImplementedError("a layer holding part of its experts runs on one device")
+        y = _routed_experts_sharded(x, ids, weights, ws, n_experts, capacity, ns, experts,
                                     expert_perm)
     else:
         if expert_perm is not None:
             ids = expert_perm.to(ids.device)[ids]  # logical -> physical slot
         if _routing is not None:
             _routing.append(ids)
-        y = _routed_experts(x, ids, weights, params["w_gate"], params["w_up"],
-                            params["w_down"], n_experts, capacity, ns, None, experts)
+        y = _routed_experts(x, ids, weights, ws, n_experts, capacity, ns, 0 if held else None,
+                            experts)
     y = y.to(x.dtype)
 
     if "shared" in params:
         sh = params["shared"]
-        y = y + _shared_experts(x, sh["w_gate"], sh["w_up"], sh["w_down"],
-                                sh["gate"] if "gate" in sh else None)
+        y = y + _shared_experts(x, activation, sh["gate"] if "gate" in sh else None,
+                                *_expert_weights(sh, activation))
     return y, aux
 
 
 @spans.traced("repro_torch.moe.shared")
-def _shared_experts(x, w_gate, w_up, w_down, gate=None):
-    """The shared experts' SwiGLU of every token ``x (T, D)``, under their
-    sigmoid gate where they have one (``gate (D, 1)``)."""
-    ys = swiglu(x, w_gate, w_up, w_down)
+def _shared_experts(x, activation: str, gate, *ws):
+    """The shared experts' FFN (``activation``, weights ``ws``) of every
+    token ``x (T, D)``, under their sigmoid gate where they have one
+    (``gate (D, 1)``)."""
+    ys = (relu2_mlp if activation == "relu2" else swiglu)(x, *ws)
     if gate is not None:
         ys = (ys.float() * torch.sigmoid(dot_f32(x, whole(gate)))).to(x.dtype)
     return ys

@@ -9,7 +9,11 @@ loop walks them: ``params.blocks`` for the ``dense``, ``moe``, ``ssm`` and
 period holding its ``attn`` layer and lists ``mamba``, ``moe`` and ``mlp`` of
 the period's other layers in order.  Every family of the reference is ported,
 with M-RoPE (``positions3``) and the modality stubs (``embeds`` in place of
-``tokens``, ``enc_embeds`` for the encoder).
+``tokens``, ``enc_embeds`` for the encoder).  The port's own ``pattern``
+family (Nemotron-H, :class:`~repro_torch.archs.PatternArchConfig`) is one
+mixer a layer, ``params.blocks`` holding each layer's Mamba2 (``norm``,
+``mamba``), MoE (``norm``, ``moe``) or attention (``attn``) in the order of
+its pattern; it trains and is not served.
 
 Prefill attention runs the flash kernel on the un-repeated (GQA) K/V: causal
 self-attention, the encoder's bidirectional attention and the decoder's
@@ -38,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..archs import RoutedMoESettings
+from ..archs import mamba_width
 from ..kernels import flash_attention
 from ..runtime import spans
 from . import mamba2 as m2
@@ -85,7 +89,7 @@ __all__ = [
     "period_layers",
 ]
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "pattern")
 
 
 def _dtype(cfg):
@@ -98,8 +102,9 @@ def _cdtype(cfg):
 
 def check_supported(cfg, serving: bool = False) -> None:
     """Raise ``NotImplementedError`` for a family the port does not know,
-    and with ``serving`` for latent attention (MLA), which the port trains
-    but does not serve: that needs a latent cache."""
+    and with ``serving`` for latent attention (MLA) and the ``pattern``
+    family, which the port trains but does not serve: those need a latent
+    cache, and a cache of Mamba states beside K/V laid out by the pattern."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch "
@@ -108,6 +113,11 @@ def check_supported(cfg, serving: bool = False) -> None:
         raise NotImplementedError(
             f"{cfg.name}: latent attention (MLA) is trained but not served: prefill and decode "
             "need a latent cache, which repro_torch does not have yet")
+    if serving and cfg.family == "pattern":
+        raise NotImplementedError(
+            f"{cfg.name}: the pattern family is trained but not served: prefill and decode need "
+            "a Mamba conv and SSD state for each M layer beside the KV cache of the * layers, "
+            "which repro_torch does not lay out yet")
 
 
 def _mla(cfg):
@@ -245,7 +255,8 @@ def init_params(cfg, seed: int, device) -> Params:
     nothing is drawn: the tree has the shapes and dtypes and no storage.
     ``dense``/``moe`` give each layer of ``params["blocks"]`` its FFN kind
     (``cfg.ffn_kinds()``: one kind for every layer of the reference's
-    configs, leading dense layers before the MoE ones for DeepSeek-V3's)."""
+    configs, leading dense layers before the MoE ones for DeepSeek-V3's);
+    ``pattern`` gives each its mixer (``cfg.layer_kinds()``)."""
     check_supported(cfg)
     gen = generator(seed, device)
     dt = _dtype(cfg)
@@ -260,6 +271,10 @@ def init_params(cfg, seed: int, device) -> Params:
     elif cfg.family == "hybrid":
         tree["periods"] = [_init_period(gen, cfg)
                            for _ in range(cfg.n_layers // cfg.attn_every)]
+    elif cfg.family == "pattern":
+        init = {"mamba": _init_mamba, "moe": _init_moe,
+                "attn": lambda gen, cfg: {"attn": _init_attn(gen, cfg)}}
+        tree["blocks"] = [init[kind](gen, cfg) for kind in cfg.layer_kinds()]
     elif cfg.family == "encdec":
         tree["encoder"] = [{"attn": _init_attn(gen, cfg), "ffn": _init_mlp(gen, cfg)}
                            for _ in range(cfg.n_encoder_layers)]
@@ -307,7 +322,11 @@ def _project_kv(p, cfg, x):
 
 def _rope_q(cfg, q, positions, positions3=None):
     """RoPE of ``(B, H, S, Dh)``: M-RoPE where the config has it and the
-    three position streams are given, plain RoPE over ``positions`` else."""
+    three position streams are given, none in the ``pattern`` family
+    (Nemotron-H's attention takes no positions), plain RoPE over
+    ``positions`` else."""
+    if cfg.family == "pattern":
+        return q
     if cfg.mrope and positions3 is not None:
         return apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
     return apply_rope(q, positions, cfg.rope_theta)
@@ -542,12 +561,8 @@ def moe_block(p, cfg, h, capacity: int, train: bool = False):
     if split:  # whole again before the view back to (B, S, D), both ways
         x = grad_layout(x, None, None)
     e = cfg.moe
-    routing = {}
-    if isinstance(e, RoutedMoESettings):
-        routing = {"scoring": e.scoring, "routed_scale": e.routed_scale,
-                   "seq_rows": b if e.balance == "sequence" else 0}
     y, aux = moe_ffn(x, p["moe"], e.n_experts, e.top_k, capacity, n_dispatch_shards=ns,
-                     train=train, **routing)
+                     train=train, routing=e, rows=b)
     if split:
         y = hint(y, None, None)
     return hint(h + y.reshape(b, s, d), "batch", None, None), aux
@@ -594,7 +609,7 @@ def cache_shapes(cfg, batch_size: int, max_len: int, enc_len: int = 0) -> dict:
     out = {}
     if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
-        d_inner = s.expand * cfg.d_model
+        d_inner = mamba_width(s, cfg.d_model)
         conv_dim = d_inner + 2 * s.n_groups * s.d_state
         if cfg.family == "hybrid":
             lead = (cfg.n_layers // cfg.attn_every,)
@@ -774,6 +789,17 @@ def _period(pp, cfg, h, positions, cap):
     return h, aux
 
 
+def _pattern_layer(lp, cfg, h, positions, kind: str, cap):
+    """One ``pattern`` layer, its one mixer: ``(h, aux)``."""
+    if kind == "moe":
+        return moe_block(lp, cfg, h, cap, train=True)
+    if kind == "mamba":
+        h = mamba_block(lp, cfg, h)
+    else:
+        h = attn_block(lp["attn"], cfg, h, positions)
+    return h, h.new_zeros((), dtype=torch.float32)
+
+
 def _encdec_layer(lp, cfg, h, positions, memory, mem_pos):
     h = attn_block(lp["attn"], cfg, h, positions)
     h = attn_block(lp["cross"], cfg, h, positions, memory=memory, memory_positions=mem_pos,
@@ -800,6 +826,10 @@ def forward_train(params, cfg, batch: dict):
     elif cfg.family == "hybrid":
         for pp in params["periods"]:
             h, a = _remat(cfg, _period, pp, cfg, h, positions, cap)
+            aux = aux + a
+    elif cfg.family == "pattern":
+        for lp, kind in zip(params["blocks"], cfg.layer_kinds()):
+            h, a = _remat(cfg, _pattern_layer, lp, cfg, h, positions, kind, cap)
             aux = aux + a
     elif cfg.family == "encdec":
         memory, mem_pos = encode(params, cfg, batch["enc_embeds"], train=True)

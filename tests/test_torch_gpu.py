@@ -683,7 +683,8 @@ def _train_batch(cfg, rng, b=4, s=32):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-3-8b", "mamba2-2.7b",
-                                  "jamba-1.5-large-398b", "seamless-m4t-medium"])
+                                  "jamba-1.5-large-398b", "seamless-m4t-medium",
+                                  "nemotron-3-nano-30b-a3b"])
 def test_reduced_train_step_on_card_matches_cpu(cuda_device, no_tf32, arch):
     """One step at two microbatches on the card against the CPU, the same
     weights: the loss, each gradient leaf (relative to its largest
